@@ -4,13 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``deft_tpu_torch/csrc`` into
-``build/kernels/``, holds every kernel against its plain PyTorch version at
-the shapes the main path gives it (and times kernel, plain version and a
-library yardstick), then drives the main path -- MOT17 tracking through
-``Detector.run`` at full width (DLA-34 with DCNv2 neck, 544x960 input, K=100,
-max_object=100, 50-slot ring) on 30 synthetic 1080x1920 frames with seeded
-random weights -- and shows that every DCNv2 layer of every frame went through
-the kernel.  It imports nothing of JAX.
+``build/kernels/`` (one nvcc per source, all at once), holds each of the four
+kernels against its plain PyTorch version at the 7 DLA-34 DCNv2 layer shapes
+of a 544x960 frame, in two offset regimes, and times kernel, plain version
+and a library yardstick beside a bound.  Then it drives both main paths at
+full width (DLA-34 with DCNv2 neck, 544x960 input, K=100, max_object=100,
+50-slot ring) on 30 synthetic 1080x1920 frames with seeded random weights:
+
+* slice 1, MOT17 tracking through ``Detector.run`` (``dcn_impl="hybrid"``,
+  every DCNv2 layer through ``dcn_sample``);
+* slice 2, the ``PipelinedRunner`` of ``test.py`` (chunk 1, depth 3) and of
+  ``bench.py`` (chunk 4, ``frame_chunk_batched``) with
+  ``dcn_impl="pallas"`` (every DCNv2 layer through ``dcn_sample_tap``,
+  similarity against the 12 freshest ring slots);
+
+and shows from the launch counters, set to 0 just before each path and read
+just after, that every DCNv2 layer of every frame went through its kernel.
+``dcn_fused`` and ``dcn_sample_onehot`` replace TPU kernels that nothing in
+the JAX package calls, so no path reaches them: their launches are the
+kernel phase's.  It imports nothing of JAX.
 
 Output: one JSON line per measurement, then the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` line and, last, the
@@ -21,6 +33,7 @@ that last line; nothing falls back to the CPU.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -34,9 +47,11 @@ import deft_tpu_torch
 from deft_tpu_torch.config import mot_config
 from deft_tpu_torch.csrc.build import build_all
 from deft_tpu_torch.inference.detector import Detector
+from deft_tpu_torch.inference.runner import PipelinedRunner
 from deft_tpu_torch.models.dcn import DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
+from deft_tpu_torch.tracking.basetrack import IdAllocator
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -54,8 +69,31 @@ LAYERS = [
     (34, 60, 256, 64, 1),
     (17, 30, 512, 256, 1),
 ]
-KERNEL_SOURCE = "deft_tpu_torch/csrc/dcn_sample.cu"
-KERNEL_REPLACES = "deft_tpu/ops/pallas_dcn.py:585"   # _cm_kernel
+# kernel -> (source, TPU kernel it replaces, launch counter in cuda_dcn)
+KERNELS = {
+    "dcn_sample": ("deft_tpu_torch/csrc/dcn_sample.cu",
+                   "deft_tpu/ops/pallas_dcn.py:585", "LAUNCHES"),   # T1
+    "dcn_sample_tap": ("deft_tpu_torch/csrc/dcn_sample.cu",
+                       "deft_tpu/ops/pallas_dcn.py:338", "LAUNCHES_TAP"),  # T2
+    "dcn_fused": ("deft_tpu_torch/csrc/dcn_fused.cu",
+                  "deft_tpu/ops/pallas_dcn.py:224", "LAUNCHES_FUSED"),  # T3
+    "dcn_sample_onehot": ("deft_tpu_torch/csrc/dcn_sample.cu",
+                          "deft_tpu/ops/pallas_dcn.py:463",
+                          "LAUNCHES_ONEHOT"),                             # T4
+}
+CHUNK = 4                      # bench.py's runner
+BOX_TOL_CARD = 0.0             # px: runner chunk 1 vs chunk 4 frame_chunk
+                               # (the same programs per frame)
+
+
+def reset_launches():
+    for _, _, counter in KERNELS.values():
+        setattr(cuda_dcn, counter, 0)
+
+
+def launches() -> dict:
+    return {name: getattr(cuda_dcn, counter)
+            for name, (_, _, counter) in KERNELS.items()}
 
 
 def emit(obj):
@@ -129,21 +167,28 @@ def make_offsets(rng, h, w, regime: str) -> np.ndarray:
     return rng.uniform(-6.0, 6.0, (h, w, 9, 2)).astype(np.float32)
 
 
-def bound_times(h, w, c, elem_bytes):
-    """Least time for deformable im2col, as (bytes_ms, operations_ms): the
-    inputs read once and the patches written once over the memory rate; 8
-    flops per patch element plus ~40 per (pixel, tap) over the float32
+def bound_times(h, w, c, in_bytes, out_bytes, cout=0):
+    """Least time for one call, as (bytes_ms, operations_ms): the inputs read
+    once and the output written once over the memory rate; 8 flops per
+    sampled patch element plus ~40 per (pixel, tap), plus 2 per
+    multiply-add of the [9C, Cout] product when ``cout`` (the fused kernel,
+    whose output is [H*W, Cout] instead of the patches), over the float32
     rate.  The bound is the larger of the two."""
-    nbytes = (h * w * c * elem_bytes + h * w * 9 * 2 * 4 + h * w * 9 * 4
-              + h * w * 9 * c * elem_bytes)
+    nbytes = h * w * c * in_bytes + h * w * 9 * 2 * 4 + h * w * 9 * 4
     flops = h * w * 9 * (8 * c + 40)
+    if cout:
+        nbytes += 9 * c * cout * 4 + cout * 4 + h * w * cout * in_bytes
+        flops += 2 * h * w * 9 * c * cout
+    else:
+        nbytes += h * w * 9 * c * out_bytes
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
 
 
 def grid_sample_yardstick(x, offsets, mask, radius):
-    """The same function through one library call: ``grid_sample`` of the
+    """The same sampling through one library call: ``grid_sample`` of the
     9-tap grid (zeros padding, corner-aligned), times the mask.  Returns the
-    timed closure; the grid is built once outside it."""
+    timed closure, whose result is [1, C, 9, H*W]; the grid is built once
+    outside it."""
     h, w, c = x.shape
     dev = x.device
     off = offsets.clamp(-radius, radius)
@@ -167,11 +212,48 @@ def grid_sample_yardstick(x, offsets, mask, radius):
     return run
 
 
+def kernel_calls(name, x, offsets, mask, weight, bias):
+    """(kernel, plain version, library yardstick, tolerance relative to
+    max|plain|, bound) of one kernel on these inputs.  Tolerances: float32
+    outputs 1e-5 (1e-4 for the fused product's sums of up to 4608 terms in
+    another order); bf16 outputs one bf16 step at the top of the range."""
+    h, w, c = x.shape
+    args = (x, offsets, mask)
+    sample = grid_sample_yardstick(x, offsets, mask, RADIUS)
+    bf16_tol = 2.0 ** -7
+    f32 = x.dtype == torch.float32
+    if name == "dcn_fused":
+        wargs = args + (weight, bias, RADIUS)
+
+        def library():
+            patches = sample().permute(0, 3, 2, 1).reshape(h * w, 9 * c)
+            return torch.addmm(bias, patches, weight)
+
+        return (lambda: cuda_dcn.deform_conv_fused(*wargs),
+                lambda: cuda_dcn.deform_conv_fused_reference(*wargs),
+                library, 1e-4 if f32 else bf16_tol,
+                bound_times(h, w, c, x.element_size(), 0, weight.shape[1]))
+    kernel, plain, out_bytes, tol = {
+        "dcn_sample": (cuda_dcn.deform_sample, cuda_dcn.deform_sample_reference,
+                       x.element_size(), 1e-5 if f32 else bf16_tol),
+        "dcn_sample_tap": (cuda_dcn.deform_sample_tap,
+                           cuda_dcn.deform_sample_tap_reference,
+                           x.element_size(), 1e-5 if f32 else bf16_tol),
+        "dcn_sample_onehot": (cuda_dcn.deform_sample_onehot,
+                              cuda_dcn.deform_sample_onehot_reference, 2,
+                              bf16_tol),
+    }[name]
+    return (lambda: kernel(*args, RADIUS), lambda: plain(*args, RADIUS),
+            sample, tol, bound_times(h, w, c, x.element_size(), out_bytes))
+
+
 def kernel_phase():
+    """Every kernel against its plain version at the 7 layer shapes, with
+    'trained' offsets and with offsets past the clamp, plus bf16 inputs at
+    the largest shape; times and bounds per call."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
-    worst = 0.0
     cases = [(shape, "trained", torch.float32) for shape in LAYERS]
     cases += [(shape, "uniform6", torch.float32) for shape in LAYERS]
     cases += [(LAYERS[0], "trained", torch.bfloat16)]
@@ -181,38 +263,41 @@ def kernel_phase():
         offsets = torch.from_numpy(make_offsets(rng, h, w, regime)).to(dev)
         mask = torch.from_numpy(rng.uniform(0, 1, (h, w, 9)).astype(
             np.float32)).to(dev)
-        got = cuda_dcn.deform_sample(x, offsets, mask, RADIUS)
-        torch.cuda.synchronize()
-        ref = cuda_dcn.deform_sample_reference(x, offsets, mask, RADIUS)
-        err = (got.float() - ref.float()).abs().max().item()
-        tol_rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-        tol = tol_rel * x.abs().max().item()
-        if not err <= tol:
-            raise AssertionError(
-                f"dcn_sample disagrees with its plain version at "
-                f"{(h, w, c)} {regime} {dtype}: {err} > {tol}")
-        worst = max(worst, err)
-        k_ms = graph_times(lambda: cuda_dcn.deform_sample(x, offsets, mask,
-                                                          RADIUS))
-        k_call_ms = cuda_times(lambda: cuda_dcn.deform_sample(
-            x, offsets, mask, RADIUS))
-        p_ms = graph_times(lambda: cuda_dcn.deform_sample_reference(
-            x, offsets, mask, RADIUS), per_graph=5)
-        lib_ms = graph_times(grid_sample_yardstick(x, offsets, mask, RADIUS))
-        t_bytes, t_ops = bound_times(h, w, c, x.element_size())
-        row = {"phase": "kernel", "kernel": "dcn_sample", "H": h, "W": w,
-               "C": c, "Cout": cout, "count": count, "regime": regime,
-               "dtype": str(dtype).replace("torch.", ""), "radius": RADIUS,
-               "kernel_ms": k_ms, "kernel_call_ms": k_call_ms,
-               "plain_ms": p_ms, "library_ms": lib_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-               "max_abs_err": err,
-               "tolerance": tol}
-        emit(row)
-        rows.append(row)
-    return rows, worst
+        weight = torch.from_numpy((rng.normal(0, 1, (9 * c, cout))
+                                   / math.sqrt(9 * c)).astype(np.float32)
+                                  ).to(dev)
+        bias = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)
+                                ).to(dev)
+        for name in KERNELS:
+            if dtype == torch.bfloat16 and name not in ("dcn_sample",
+                                                        "dcn_fused"):
+                continue
+            kernel, plain, library, tol_rel, (t_bytes, t_ops) = kernel_calls(
+                name, x, offsets, mask, weight, bias)
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = tol_rel * ref.float().abs().max().item()
+            if not err <= tol:
+                raise AssertionError(
+                    f"{name} disagrees with its plain version at "
+                    f"{(h, w, c, cout)} {regime} {dtype}: {err} > {tol}")
+            row = {"phase": "kernel", "kernel": name, "H": h, "W": w, "C": c,
+                   "Cout": cout, "count": count, "regime": regime,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "radius": RADIUS,
+                   "kernel_ms": graph_times(kernel),
+                   "kernel_call_ms": cuda_times(kernel),
+                   "plain_ms": graph_times(plain, per_graph=5),
+                   "library_ms": graph_times(library),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                   "max_abs_err": err, "tolerance": tol}
+            emit(row)
+            rows.append(row)
+    return rows
 
 
 # ---- the main path ----------------------------------------------------------
@@ -312,53 +397,66 @@ def reference_check(det, cfg):
     return worst
 
 
-def slice_phase(cfg, device="cuda", frame_hw=(1080, 1920), layers=LAYERS,
-                min_dets=20):
-    """Drive ``Detector.run`` over FRAMES synthetic frames and check that
-    every DCNv2 layer of every frame launched the kernel.  The arguments
-    other than ``cfg`` exist for a rehearsal at a tiny size on the CPU."""
+def prepared_detector(cfg, frames, device, layers):
+    """A Detector with seeded weights, its offset convs randomized and its
+    heatmap raised on the first frame; checks the DCNv2 layer shapes."""
     gen = torch.Generator().manual_seed(SEED)
     det = Detector(cfg, device=device)
     model = det.model
     n_dcn = sum(isinstance(m, DCNv2) for m in model.modules())
-    frames = list(synthetic_frames(FRAMES, *frame_hw))
-    sync = torch.cuda.synchronize if det.device.type == "cuda" else lambda: None
-
     first, _ = det.pre_process(frames[0])
     offset_q, shapes = randomize_offsets(model, first, gen)
     expected = Counter({l[:4]: l[4] for l in layers})
     if shapes != expected or n_dcn != sum(expected.values()):
         raise AssertionError(f"DCN layer shapes {dict(shapes)} != {dict(expected)}")
     raise_heatmap(model, first)
+    return det, n_dcn, offset_q
+
+
+def check_tracks(seq, min_dets):
+    """Finite boxes and enough detections in every frame's track list."""
+    n_dets = [len(online) for online in seq]
+    for online in seq:
+        for t in online:
+            if not np.isfinite(t.tlbr).all():
+                raise AssertionError("non-finite track box")
+    if min(n_dets) < min_dets:
+        raise AssertionError(f"too few detections per frame: {n_dets}")
+    return n_dets
+
+
+def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
+    """Drive ``Detector.run`` over the frames and check that every DCNv2
+    layer of every frame launched ``dcn_sample``.  ``device``, ``layers``
+    and ``min_dets`` exist for a rehearsal at a tiny size on the CPU."""
+    det, n_dcn, offset_q = prepared_detector(cfg, frames, device, layers)
+    sync = torch.cuda.synchronize if det.device.type == "cuda" else lambda: None
     ref_rel = reference_check(det, cfg)
     det.reset_tracking()
 
     sync()
     if det.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    cuda_dcn.LAUNCHES = 0
-    times, n_dets, n_tracks = [], [], []
+    reset_launches()
+    times, seq, n_tracks = [], [], []
     for frame in frames:
         t0 = time.perf_counter()
         online = det.run(frame)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
-        n_dets.append(len(online))
+        seq.append(online)
         n_tracks.append(len(det.tracker.tracked_stracks))
-        for t in online:
-            if not np.isfinite(t.tlbr).all():
-                raise AssertionError("non-finite track box")
-    launches = cuda_dcn.LAUNCHES
+    count = launches()
     peak = (torch.cuda.max_memory_allocated() if det.device.type == "cuda"
             else None)
-    expected_launches = n_dcn * FRAMES if det.device.type == "cuda" else 0
-    if launches != expected_launches:
-        raise AssertionError(
-            f"{launches} dcn_sample launches, expected {expected_launches}")
+    on_card = det.device.type == "cuda"
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dcn_sample"] = n_dcn * len(frames) if on_card else 0
+    if count != expected:
+        raise AssertionError(f"kernel launches {count}, expected {expected}")
     if not torch.isfinite(det.tracker.recorder.embeds).all():
         raise AssertionError("non-finite embeddings in the ring")
-    if min(n_dets) < min_dets:
-        raise AssertionError(f"too few detections per frame: {n_dets}")
+    n_dets = check_tracks(seq, min_dets)
 
     # where a steady frame's time goes, each stage ended by a synchronize
     stages = {"pre_process": [], "detect": [], "post_process": [],
@@ -380,21 +478,171 @@ def slice_phase(cfg, device="cuda", frame_hw=(1080, 1920), layers=LAYERS,
             stages[name].append((b - a) * 1e3)
 
     row = {"phase": "slice", "device": str(det.device),
-           "config": f"mot_config dla_34 {cfg.dla_node} "
-                     f"{cfg.input_h}x{cfg.input_w} K={cfg.K} "
+           "config": f"mot_config dla_34 {cfg.dla_node} dcn_impl="
+                     f"{cfg.dcn_impl} {cfg.input_h}x{cfg.input_w} K={cfg.K} "
                      f"max_object={cfg.max_object}",
-           "frames": FRAMES, "frame_size": list(frame_hw),
+           "frames": len(frames), "frame_size": list(frames[0].shape[:2]),
            "ms_per_frame_median": statistics.median(times[1:]),
            "ms_first_frame": times[0],
            "dets_per_frame_median": statistics.median(n_dets),
            "tracks_per_frame_median": statistics.median(n_tracks),
-           "dcn_layers": n_dcn, "dcn_launches": launches,
+           "dcn_layers": n_dcn, "launches": count,
            "peak_memory_bytes": peak, "offset_abs_q01_q50_q99": offset_q,
            "card_vs_cpu_max_rel_err": ref_rel,
            "stage_ms_median": {k: statistics.median(v)
                                for k, v in stages.items()}}
     emit(row)
-    return launches, det, frames, row["ms_per_frame_median"]
+    return count["dcn_sample"], det, row["ms_per_frame_median"]
+
+
+# runner runs: (name, chunk, chunk_batched); bench.py batches only with
+# --chunk-batched
+RUNS = (("test.py", 1, False), ("bench.py", CHUNK, False),
+        ("bench.py --chunk-batched", CHUNK, True))
+
+
+@torch.no_grad()
+def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
+    """Slice 2's main path: ``mot_config(dcn_impl="pallas")`` through the
+    ``PipelinedRunner`` of test.py (chunk 1, depth 3), then of bench.py
+    (chunk 4: ``frame_chunk``, and ``frame_chunk_batched`` under its
+    --chunk-batched; the last chunk is padded to 4).  Each run follows a
+    warm-up sequence and a ``reset``; its launch counts are read around
+    ``track_sequence`` alone.  Every DCNv2 layer of every dispatched frame
+    must launch ``dcn_sample_tap`` and nothing else.
+
+    Chunk 4 ``frame_chunk`` runs each frame's program as chunk 1 does, so
+    its frames must carry the same track ids, each track's box within
+    BOX_TOL_CARD.  The batched run is held to that only as a report: cuDNN
+    picks other algorithms for a batch of 4, whose last-bit differences T2's
+    bf16 rounding of each DCN input turns into bf16 steps, and the random
+    weights' heatmap gain amplifies those into other detections
+    (PERF.md, PR 2).  Returns ({run: row}, the chunk-1 runner); ``cfg``,
+    ``device``, ``layers`` and ``min_dets`` exist for a rehearsal on the
+    CPU."""
+    cfg = cfg or mot_config(dcn_impl="pallas")
+    det, n_dcn, offset_q = prepared_detector(cfg, frames, device, layers)
+    on_card = det.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else lambda: None
+    rows, tracks, runners = {}, {}, {}
+    for run, chunk, batched in RUNS:
+        det.cfg = cfg.replace(chunk_batched=batched)
+        runner = PipelinedRunner(det, depth=3, chunk=chunk)
+        runner.track_sequence(frames[: 2 * chunk])
+        det.ids = IdAllocator()       # every run numbers its tracks from 1
+        runner.reset()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        seq = runner.track_sequence(frames)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        count = launches()
+        dispatched = math.ceil(len(frames) / chunk) * chunk
+        expected = dict.fromkeys(KERNELS, 0)
+        expected["dcn_sample_tap"] = n_dcn * dispatched if on_card else 0
+        if count != expected:
+            raise AssertionError(f"{run}: kernel launches {count}, expected "
+                                 f"{expected}")
+        if len(seq) != len(frames):
+            raise AssertionError(f"{run}: {len(seq)} frames tracked")
+        if not torch.isfinite(runner.state["embeds"]).all():
+            raise AssertionError(f"{run}: non-finite embeddings in the ring")
+        n_dets = check_tracks(seq, min_dets)
+        rows[run] = {
+            "phase": "runner", "run": run, "device": str(det.device),
+            "config": f"mot_config dla_34 {cfg.dla_node} dcn_impl="
+                      f"{cfg.dcn_impl} {cfg.input_h}x{cfg.input_w} "
+                      f"K={cfg.K} max_object={cfg.max_object} sim_window="
+                      f"{runner.sim_window}",
+            "chunk": chunk, "chunk_batched": batched, "depth": 3,
+            "frames": len(frames), "frames_dispatched": dispatched,
+            "ms_per_frame": wall_ms / len(frames),
+            "timings_ms_per_frame": runner.timings(),
+            "main_keys": list(runner.main_keys()),
+            "dets_per_frame_median": statistics.median(n_dets),
+            "dcn_layers": n_dcn, "launches": count,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if on_card else None),
+            "offset_abs_q01_q50_q99": offset_q}
+        # per frame: track id -> box (a frame's tracks come in the order of
+        # its detections)
+        tracks[run] = [{t.track_id: t.tlbr for t in online} for online in seq]
+        runners[run] = runner
+    base = tracks["test.py"]
+    for run, _, batched in RUNS[1:]:
+        same = [sorted(a) == sorted(b) for a, b in zip(base, tracks[run])]
+        box_diff = max((float(np.abs(a[i] - b[i]).max())
+                        for a, b in zip(base, tracks[run]) for i in a if i in b),
+                       default=0.0)
+        rows[run].update({"frames_with_chunk_1_track_ids": sum(same),
+                          "first_frame_ids_differ": (same.index(False)
+                                                     if not all(same) else None),
+                          "max_box_diff_px_to_chunk_1": box_diff})
+        if not batched and not (all(same) and box_diff <= BOX_TOL_CARD):
+            raise AssertionError(
+                f"{run} differs from chunk 1: {sum(same)} of {len(same)} "
+                f"frames with its track ids, boxes within {box_diff} px")
+    for row in rows.values():
+        emit(row)
+    det.cfg = cfg
+    return rows, runners["test.py"]
+
+
+@torch.no_grad()
+def runner_profile_phase(runner, frames, ms_per_frame):
+    """Where the runner's time goes on the card: CUDA-event times of the
+    window similarity against the 12 freshest ring slots (the runner's) and
+    against all 50, then ``torch.profiler`` over 8 frames of the chunk-1
+    runner for the device kernel time per frame.  The busy share divides it
+    by the runner phase's (unprofiled) ms/frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = runner.det.model
+    state = runner.state
+    m = runner.cfg.max_object
+    cur = state["embeds"][0].clone()
+    n = torch.tensor(m, dtype=torch.int32, device=cur.device)
+    idx = (state["ptr"] - 1 - torch.arange(runner.sim_window,
+                                           device=cur.device)) % 50
+    row = {"phase": "runner_profile",
+           "similarity_12_slots_ms": cuda_times(lambda: model.window_similarity(
+               state["embeds"][idx], state["counts"][idx], cur, n)),
+           "similarity_50_slots_ms": cuda_times(lambda: model.window_similarity(
+               state["embeds"], state["counts"], cur, n))}
+    # the main thread's dispatch with the cascade on the same thread (no
+    # worker competing for the interpreter lock)
+    runner.reset()
+    runner.cascade_async = False
+    runner.track_sequence(frames[:10])
+    row["timings_ms_per_frame_cascade_inline"] = runner.timings()
+    runner.cascade_async = True
+    runner.reset()
+    n_frames = 8
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.track_sequence(frames[:n_frames])
+        torch.cuda.synchronize()
+    kernels, host_waits = [], {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            if "Synchronize" in evt.key or "cudaMemcpy" in evt.key:
+                host_waits[evt.key] = evt.count / n_frames
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        kernels.append((t / 1e3 / n_frames, evt.count / n_frames, evt.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    row.update({"profiled_frames": n_frames, "device_ms_per_frame": device_ms,
+                "busy_share": device_ms / ms_per_frame,
+                "host_sync_and_copy_calls_per_frame": host_waits,
+                "top_kernels_ms_per_frame": [
+                    [round(t, 4), c, name[:90]] for t, c, name in kernels[:12]]})
+    emit(row)
 
 
 @torch.no_grad()
@@ -440,6 +688,40 @@ def profile_phase(det, frames, ms_per_frame):
     emit(row)
 
 
+def kernels_line(rows, kernel_launches, slice_launches, runner_launches):
+    """Per kernel: per-frame sums over the 16 layers (float32, 'trained'
+    offsets), the worst error of any case, and the launches of the path
+    that runs it (the kernel phase's for the two no path reaches)."""
+    entries = []
+    for name, (source, replaces, _) in KERNELS.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        per_frame = [r for r in mine if r["regime"] == "trained"
+                     and r["dtype"] == "float32"]
+        total = {key: sum(r[key] * r["count"] for r in per_frame)
+                 for key in ("kernel_ms", "plain_ms", "library_ms",
+                             "bound_bytes_ms", "bound_operations_ms")}
+        path = {"dcn_sample": ("Detector.run, dcn_impl=hybrid",
+                               slice_launches),
+                "dcn_sample_tap": ("PipelinedRunner chunk 1, dcn_impl=pallas",
+                                   runner_launches)}
+        path_name, count = path.get(name, (
+            "none: nothing in the JAX package calls the TPU kernel; "
+            "launches through the wrapper in the kernel phase",
+            kernel_launches[name]))
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count,
+            "path": path_name,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": max(total["bound_bytes_ms"],
+                            total["bound_operations_ms"]),
+            "bound_by": ("bytes" if total["bound_bytes_ms"]
+                         >= total["bound_operations_ms"] else "operations"),
+            "library_ms": total["library_ms"]})
+    return {"kernels": entries}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -458,25 +740,20 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": secs})
 
-    rows, worst = kernel_phase()
-    launches, det, frames, ms_per_frame = slice_phase(mot_config())
+    reset_launches()
+    rows = kernel_phase()
+    kernel_launches = launches()
+    frames = list(synthetic_frames(FRAMES))
+    slice_launches, det, ms_per_frame = slice_phase(mot_config(), frames)
     profile_phase(det, frames, ms_per_frame)
+    del det
+    runner_rows, runner = runner_phase(frames)
+    runner_profile_phase(runner, frames,
+                         runner_rows["test.py"]["ms_per_frame"])
 
-    per_frame = [r for r in rows if r["regime"] == "trained"
-                 and r["dtype"] == "float32"]
-    total = {key: sum(r[key] * r["count"] for r in per_frame)
-             for key in ("kernel_ms", "plain_ms", "library_ms",
-                         "bound_bytes_ms", "bound_operations_ms")}
-    bound_by = ("bytes" if total["bound_bytes_ms"]
-                >= total["bound_operations_ms"] else "operations")
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "dcn_sample", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst, "ms": total["kernel_ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": max(total["bound_bytes_ms"], total["bound_operations_ms"]),
-        "bound_by": bound_by, "library_ms": total["library_ms"]}]})
+    emit(kernels_line(rows, kernel_launches, slice_launches,
+                      runner_rows["test.py"]["launches"]["dcn_sample_tap"]))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

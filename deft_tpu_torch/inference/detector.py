@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from deft_tpu_torch.config import Config
+from deft_tpu_torch.data.datasets import get_dataset_info
 from deft_tpu_torch.inference.post_process import generic_post_process
 from deft_tpu_torch.models.factory import create_model, resolve_device
 from deft_tpu_torch.ops.affine import get_affine_transform
@@ -50,6 +51,9 @@ class Detector:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.embed_dim = self.model.embed_dim
+        info = get_dataset_info(cfg.test_dataset or cfg.dataset)
+        self.rest_focal_length = (info.focal_length if cfg.test_focal_length < 0
+                                  else cfg.test_focal_length)
         self._mean = torch.as_tensor(MEAN, device=self.device)
         self._std = torch.as_tensor(STD, device=self.device)
         self.ids = IdAllocator()
@@ -67,15 +71,29 @@ class Detector:
 
     # ---- preprocessing (reference detector.py:346-422) ------------------------
 
+    def _transform_scale(self, image, scale: float = 1.0):
+        """Frame geometry under fix_res (reference detector.py:346-376; the
+        only preprocessing this port runs): (image, c, s, inp_w, inp_h,
+        height, width) with the frame's centre, its longer side and the
+        config's input size."""
+        if scale != 1.0:
+            raise NotImplementedError(f"test scales != 1 {_LATER}")
+        height, width = image.shape[:2]
+        c = np.array([width / 2.0, height / 2.0], np.float32)
+        s = max(height, width) * 1.0
+        return (image, c, s, self.cfg.input_w, self.cfg.input_h, height,
+                width)
+
+    def _default_calib(self, width, height) -> np.ndarray:
+        return np.array(
+            [[self.rest_focal_length, 0, width / 2, 0],
+             [0, self.rest_focal_length, height / 2, 0],
+             [0, 0, 1, 0]], np.float32)
+
     def pre_process(self, image):
         """image: [H, W, 3] uint8 frame (numpy or tensor) -> (normalized
         [1, inp_h, inp_w, 3] float32 on the device, meta)."""
-        height, width = image.shape[:2]
-        # fix_res geometry: the frame's centre, its longer side, the config's
-        # input size
-        c = np.array([width / 2.0, height / 2.0], np.float32)
-        s = max(height, width) * 1.0
-        inp_h, inp_w = self.cfg.input_h, self.cfg.input_w
+        _, c, s, inp_w, inp_h, height, width = self._transform_scale(image)
         trans_input = get_affine_transform(c, s, 0, [inp_w, inp_h])
         frame = torch.as_tensor(image, device=self.device)[None]
         warped = warp_affine_separable(

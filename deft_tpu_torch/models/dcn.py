@@ -10,9 +10,21 @@ as used by every upsampling node of the DLA neck, ``dla.py:646-665``):
   ``18 + k`` its mask logit.  The JAX package keeps these channels tap-major;
   ``deft_tpu_torch.convert`` permutes between the two.
 
-The sampling runs through ``ops.cuda_dcn.deform_conv``: the hand-written CUDA
-kernel on the card, its plain version on the CPU.  Offsets are clamped to the
-layer's radius, as every JAX DCN implementation except ``gather`` does.
+``impl`` is the config's ``dcn_impl`` and picks the function as
+``deft_tpu/models/dcn.py:144-198`` does, batched route included:
+
+* ``gather``: ``ops.cuda_dcn.deform_conv`` with no clamp;
+* ``hybrid``, ``onehot``, ``shift``: ``deform_conv``, float32, clamped.  This
+  is what the JAX package computes on the CPU, where the tests hold the port
+  (its hybrid takes the TPU kernel's bf16 slab only on a TPU);
+* ``pallas``: ``deform_conv_tap`` (T2's counterpart) for every sample of a
+  batch, as the JAX package maps its Pallas kernel over the batch;
+* ``pallas_cm``: ``deform_conv_cm`` (T1's bf16 function) for one sample;
+  under a batch the float32 ``deform_conv``, as the JAX package routes
+  batches through ``deform_conv_onehot_remat``.
+
+Any other value raises.  Each function is the hand-written CUDA kernel on the
+card and its plain version on the CPU (``ops/cuda_dcn.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +35,10 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from deft_tpu_torch.ops.cuda_dcn import KK, deform_conv
+from deft_tpu_torch.ops.cuda_dcn import (KK, deform_conv, deform_conv_cm,
+                                         deform_conv_tap)
+
+DCN_IMPLS = ("gather", "hybrid", "onehot", "shift", "pallas", "pallas_cm")
 
 
 def resolve_radius(path: str, offset_range: int,
@@ -41,9 +56,13 @@ def resolve_radius(path: str, offset_range: int,
 class DCNv2(nn.Module):
     """Modulated deformable 3x3 conv (stride 1, one deformable group)."""
 
-    def __init__(self, chi: int, cho: int, radius: int = 4):
+    def __init__(self, chi: int, cho: int, radius: int = 4,
+                 impl: str = "hybrid"):
         super().__init__()
-        self.radius = radius            # negative: no clamp (dcn_impl=gather)
+        if impl not in DCN_IMPLS:
+            raise ValueError(f"unknown dcn_impl {impl!r}; one of {DCN_IMPLS}")
+        self.impl = impl
+        self.radius = -1 if impl == "gather" else radius   # -1: no clamp
         self.weight = nn.Parameter(torch.empty(cho, chi, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cho))
         self.conv_offset_mask = nn.Conv2d(chi, 3 * KK, 3, padding=1, bias=True)
@@ -64,9 +83,15 @@ class DCNv2(nn.Module):
         cho, chi = self.weight.shape[:2]
         wk = self.weight.permute(2, 3, 1, 0).reshape(KK * chi, cho)  # tap-major
         xs = x.permute(0, 2, 3, 1)
+        if self.impl == "pallas":
+            fn = deform_conv_tap
+        elif self.impl == "pallas_cm" and b == 1:
+            fn = deform_conv_cm
+        else:
+            fn = deform_conv
         out = torch.stack([
-            deform_conv(xs[i].contiguous(), offsets[i].contiguous(),
-                        mask[i].contiguous(), wk, self.bias, self.radius)
+            fn(xs[i].contiguous(), offsets[i].contiguous(),
+               mask[i].contiguous(), wk, self.bias, self.radius)
             for i in range(b)
         ])
         return out.permute(0, 3, 1, 2).contiguous()

@@ -12,19 +12,73 @@ Entry points, with the JAX layouts at their boundary:
   ``image`` is NHWC as in the JAX package, feature maps stay NCHW;
 * ``detect(image, k)`` -> sigmoided + decoded top-K detections and their AFE
   embeddings (no ``flip_test``, no ``parity_tf`` yet);
-* ``extract`` and ``window_similarity`` re-export the AFE head.
+* ``extract`` and ``window_similarity`` re-export the AFE head;
+* the fused per-frame tracking programs ``frame_step``, ``frame_chunk`` and
+  ``frame_chunk_batched`` (``deft_tpu/models/deft.py:319-576``): device warp
+  of the raw uint8 frame, detect, the valid-detection prefix, the AFE
+  similarity against the ``sim_window`` freshest slots of the embedding ring
+  and the conditional ring write, with every detection field packed into one
+  float32 vector (``pack_dets``) and the similarity in float16 (or uint8).
+
+The ring state ``{"embeds" [W, M, E] float32, "counts" [W] int32, "ptr" []
+int64}`` is a dict of device tensors that the frame programs update in place
+(the JAX package returns a new state and donates the old); nothing in a
+frame program waits for the device, so a caller can queue frames ahead.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from deft_tpu_torch.models.afe import AFE
 from deft_tpu_torch.models.dla import DLASeg, NodeSpec
 from deft_tpu_torch.ops.decode import clamped_sigmoid, generic_decode
+from deft_tpu_torch.ops.warp import hat_matrix, warp_affine_with
+
+MEAN = (0.40789654, 0.44719302, 0.47026115)
+STD = (0.28863828, 0.27408164, 0.27809835)
+
+# the decode outputs the host consumes (deft_tpu/models/deft.py:462-464)
+KEEP_DETS = ("scores", "clses", "cts", "bboxes", "bboxes_amodal",
+             "tracking", "dep", "rot", "dim", "amodel_offset",
+             "nuscenes_att", "velocity")
+
+
+def pack_dets(dets: Dict[str, torch.Tensor], n_valid: torch.Tensor):
+    """A decode-output dict (batch 1) plus the valid count as one float32
+    vector: ``[n_valid, *dets[key] for key in sorted order]``
+    (``deft_tpu/models/deft.py:36-45``)."""
+    parts = [n_valid.float().reshape(1)]
+    for key in sorted(dets):
+        parts.append(dets[key][0].float().reshape(-1))
+    return torch.cat(parts)
+
+
+def unpack_dets(packed: np.ndarray, layout: Sequence[Tuple[str, int]],
+                k: int):
+    """Inverse of ``pack_dets`` on the host: (packed vector, [(key, dim)] in
+    sorted order, K) -> (dict of [1, K] or [1, K, dim] numpy arrays,
+    n_valid)."""
+    n_valid = int(packed[0])
+    out = {}
+    off = 1
+    for key, dim in layout:
+        arr = packed[off: off + k * dim]
+        out[key] = arr.reshape(1, k) if dim == 1 else arr.reshape(1, k, dim)
+        off += k * dim
+    return out, n_valid
+
+
+def new_ring(window: int, max_object: int, embed_dim: int, device):
+    """An empty embedding ring for the frame programs."""
+    return {"embeds": torch.zeros((window, max_object, embed_dim),
+                                  dtype=torch.float32, device=device),
+            "counts": torch.zeros((window,), dtype=torch.int32, device=device),
+            "ptr": torch.zeros((), dtype=torch.int64, device=device)}
 
 
 class HeadTower(nn.Sequential):
@@ -65,6 +119,14 @@ class DEFTNet(DLASeg):
                 last_channel, c, tuple(head_convs.get(h, ())), head_kernel,
                 prior_bias if "hm" in h else None))
         self.AFE = AFE(max_object, align_corners)
+        self.max_object = max_object
+        # input normalization constants, on the model's device
+        self.register_buffer("input_mean", torch.tensor(MEAN),
+                             persistent=False)
+        self.register_buffer("input_std", torch.tensor(STD), persistent=False)
+        # device warp matrices per (transform, frame size): the frame
+        # programs reuse them, so no frame builds them from host scalars
+        self._hats: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def embed_dim(self) -> int:
@@ -107,3 +169,145 @@ class DEFTNet(DLASeg):
         centers = torch.stack([2.0 * cts[..., 0] / out_w - 1.0,
                                2.0 * cts[..., 1] / out_h - 1.0], dim=-1)
         return dets, self.extract(feature_maps, centers)
+
+    # ---- fused per-frame tracking programs -----------------------------------
+
+    def _maybe_normalize(self, image: torch.Tensor) -> torch.Tensor:
+        """uint8 frames are normalized on the device; float frames pass."""
+        if image.dtype == torch.uint8:
+            image = (image.float() / 255.0 - self.input_mean) / self.input_std
+        return image
+
+    def _warp_normalize(self, image: torch.Tensor, warp_tf,
+                        warp_out: Tuple[int, int]) -> torch.Tensor:
+        """Device input warp (``deft_tpu/models/deft.py:390-401``): raw
+        [B, H, W, 3] frames and the [6] separable inverse transform ->
+        warped, normalized float32 [B, out_h, out_w, 3]."""
+        _, h, w, _ = image.shape
+        out_h, out_w = warp_out
+        tf = tuple(float(v) for v in np.asarray(warp_tf, np.float32).ravel())
+        key = (tf, h, w, out_h, out_w, image.device)
+        hats = self._hats.get(key)
+        if hats is None:
+            if len(self._hats) >= 8:
+                self._hats.clear()
+            hats = (hat_matrix(tf[0], tf[2], out_w, w, image.device),
+                    hat_matrix(tf[4], tf[5], out_h, h, image.device))
+            self._hats[key] = hats
+        # frame by frame: a frame's warp does not depend on its chunk
+        warped = torch.cat([warp_affine_with(image[i: i + 1], *hats)
+                            for i in range(image.shape[0])])
+        return (warped / 255.0 - self.input_mean) / self.input_std
+
+    def _sim_and_record(self, emb: torch.Tensor, n_valid: torch.Tensor,
+                        state: Dict[str, torch.Tensor], sims_quant: bool,
+                        sim_window: int = 0) -> torch.Tensor:
+        """Window similarity of this frame's embeddings against the ring,
+        then the conditional ring write (``deft_tpu/models/deft.py:319-368``;
+        empty frames are not buffered).
+
+        ``0 < sim_window < W`` compares against the ``sim_window`` freshest
+        slots only, freshest first: slot ``(ptr - 1 - i) % W`` is row i.
+        Returns the similarity as float16, or as uint8
+        ``round(clip(s, 0, 1) * 255)`` under ``sims_quant``; ``state`` is
+        updated in place."""
+        m = self.max_object
+        dev = emb.device
+        emb = emb[:m] * (torch.arange(m, device=dev) < n_valid)[:, None].float()
+        embeds, counts, ptr = state["embeds"], state["counts"], state["ptr"]
+        w_slots = embeds.shape[0]
+        if 0 < sim_window < w_slots:
+            idx = (ptr - 1 - torch.arange(sim_window, device=dev)) % w_slots
+            sims = self.window_similarity(embeds.index_select(0, idx),
+                                          counts.index_select(0, idx), emb,
+                                          n_valid)
+        else:
+            sims = self.window_similarity(embeds, counts, emb, n_valid)
+
+        do = n_valid > 0
+        slot = (ptr % w_slots).reshape(1)
+        embeds.index_copy_(0, slot, torch.where(
+            do, emb, embeds.index_select(0, slot)[0])[None])
+        counts.index_copy_(0, slot, torch.where(
+            do, n_valid.to(counts.dtype), counts.index_select(0, slot)))
+        ptr.add_(do.to(ptr.dtype))
+        if sims_quant:
+            return torch.round(sims.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        return sims.half()
+
+    def _frame_tail(self, dets: Dict[str, torch.Tensor], emb: torch.Tensor,
+                    state, out_thresh: float, class_filter: int,
+                    sims_quant: bool, sim_window: int):
+        """The tail shared by every frame program (``deft_tpu/models/
+        deft.py:466-490``): dets [K, ...] and emb [K, E] of one frame ->
+        (packed dets, sims); the ring in ``state`` is updated in place.
+
+        Valid detections are the score-sorted prefix above ``out_thresh``,
+        at most ``max_object``; with ``class_filter >= 0`` only that class,
+        the embeddings stably compacted to the host's filtered order."""
+        valid = dets["scores"] >= out_thresh
+        if class_filter >= 0:
+            valid = valid & (dets["clses"].int() == class_filter)
+            order = torch.sort((~valid).int(), stable=True).indices
+            emb = emb[order]
+        n_valid = valid.sum().clamp(max=self.max_object).int()
+        sims = self._sim_and_record(emb, n_valid, state, sims_quant,
+                                    sim_window)
+        kept = {k: v[None] for k, v in dets.items() if k in KEEP_DETS}
+        return pack_dets(kept, n_valid), sims
+
+    @torch.no_grad()
+    def frame_step(self, image: torch.Tensor, state, out_thresh: float,
+                   k: int = 100, class_filter: int = -1,
+                   sims_quant: bool = False, sim_window: int = 0,
+                   warp_tf=None, warp_out=None):
+        """One frame of tracking on the device (``deft_tpu/models/
+        deft.py:403-455``): image [1, H, W, 3] (raw uint8 with ``warp_tf``
+        and ``warp_out``, else uint8 or normalized at the input size) ->
+        (packed dets, sims); the ring in ``state`` is updated in place."""
+        if warp_tf is not None:
+            image = self._warp_normalize(image, warp_tf, warp_out)
+        dets, emb = self.detect(self._maybe_normalize(image), k=k)
+        return self._frame_tail({key: v[0] for key, v in dets.items()},
+                                emb[0], state, out_thresh, class_filter,
+                                sims_quant, sim_window)
+
+    @torch.no_grad()
+    def frame_chunk(self, images: torch.Tensor, state, out_thresh: float,
+                    k: int = 100, class_filter: int = -1,
+                    sims_quant: bool = False, sim_window: int = 0,
+                    warp_tf=None, warp_out=None):
+        """``frame_step`` over a chunk [T, H, W, 3] in frame order
+        (``deft_tpu/models/deft.py:492-523``; a loop where the JAX package
+        scans), after one batched warp.  Returns (packed [T, L], sims [T,
+        ...])."""
+        if warp_tf is not None:
+            images = self._warp_normalize(images, warp_tf, warp_out)
+        outs = [self.frame_step(images[t: t + 1], state, out_thresh, k=k,
+                                class_filter=class_filter,
+                                sims_quant=sims_quant, sim_window=sim_window)
+                for t in range(images.shape[0])]
+        return _stack(outs)
+
+    @torch.no_grad()
+    def frame_chunk_batched(self, images: torch.Tensor, state,
+                            out_thresh: float, k: int = 100,
+                            class_filter: int = -1, sims_quant: bool = False,
+                            sim_window: int = 0, warp_tf=None, warp_out=None):
+        """``frame_chunk`` with one batched ``detect`` over the chunk, then
+        the tail per frame in frame order (``deft_tpu/models/
+        deft.py:525-576``)."""
+        if warp_tf is not None:
+            images = self._warp_normalize(images, warp_tf, warp_out)
+        dets, emb = self.detect(self._maybe_normalize(images), k=k)
+        outs = [self._frame_tail({key: v[t] for key, v in dets.items()},
+                                 emb[t], state, out_thresh, class_filter,
+                                 sims_quant, sim_window)
+                for t in range(images.shape[0])]
+        return _stack(outs)
+
+
+def _stack(outs: List[Tuple[torch.Tensor, torch.Tensor]]):
+    """Per-frame (packed, sims) pairs -> (packed [T, L], sims [T, ...])."""
+    return (torch.stack([p for p, _ in outs]),
+            torch.stack([s for _, s in outs]))

@@ -143,10 +143,10 @@ class DLA(nn.Module):
 class DeformNode(nn.Module):
     """DCN -> BN -> ReLU ("dcn" node, reference ``dla.py:646-665``)."""
 
-    def __init__(self, cin: int, cout: int, radius: int):
+    def __init__(self, cin: int, cout: int, radius: int, impl: str = "hybrid"):
         super().__init__()
         self.actf = nn.Sequential(batch_norm(cout), nn.ReLU(inplace=True))
-        self.conv = DCNv2(cin, cout, radius)
+        self.conv = DCNv2(cin, cout, radius, impl)
 
     def forward(self, x):
         return self.actf(self.conv(x))
@@ -164,11 +164,12 @@ class ConvNode(nn.Module):
 
 
 class NodeSpec:
-    """How IDAUp builds its nodes: the node type plus the DCN clamp radii
-    (``dcn_radius < 0`` means no clamp)."""
+    """How IDAUp builds its nodes: the node type, the DCN clamp radii
+    (``dcn_radius < 0`` means no clamp) and the ``dcn_impl``."""
 
     def __init__(self, node_type: str = "dcn", dcn_radius: int = 4,
-                 radius_map: Sequence[Tuple[str, int]] = ()):
+                 radius_map: Sequence[Tuple[str, int]] = (),
+                 dcn_impl: str = "hybrid"):
         if node_type not in ("dcn", "conv"):
             raise NotImplementedError(
                 f"dla_node={node_type!r} is not ported yet (ROADMAP.md, "
@@ -176,6 +177,7 @@ class NodeSpec:
         self.node_type = node_type
         self.dcn_radius = dcn_radius
         self.radius_map = tuple(radius_map)
+        self.dcn_impl = dcn_impl
 
     def make(self, cin: int, cout: int, path: str) -> nn.Module:
         if self.node_type == "conv":
@@ -183,7 +185,7 @@ class NodeSpec:
         radius = self.dcn_radius
         if radius >= 0:
             radius = resolve_radius(f"{path}/conv", radius, self.radius_map)
-        return DeformNode(cin, cout, radius)
+        return DeformNode(cin, cout, radius, self.dcn_impl)
 
 
 class IDAUp(nn.Module):

@@ -53,8 +53,8 @@ def create_model(arch: str, cfg: Config, device="cuda") -> DEFTNet:
         raise NotImplementedError(
             "bf16 compute is not ported yet (ROADMAP.md, queue A)")
     dev = resolve_device(device)
-    radius = -1 if cfg.dcn_impl == "gather" else cfg.dcn_offset_range
-    spec = NodeSpec(cfg.dla_node, radius, parse_layer_radii(cfg.dcn_layer_radii))
+    spec = NodeSpec(cfg.dla_node, cfg.dcn_offset_range,
+                    parse_layer_radii(cfg.dcn_layer_radii), cfg.dcn_impl)
     # construction draws torch's default init from the global generator;
     # fork it so building a model leaves the caller's random state alone,
     # then overwrite everything from the seeded generator

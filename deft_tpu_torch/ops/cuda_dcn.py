@@ -1,21 +1,50 @@
-"""DCNv2 sampling: the hand-written CUDA kernel, its wrapper and its plain
-version.  The counterpart of ``deft_tpu/ops/pallas_dcn.py``.
+"""DCNv2 sampling: the hand-written CUDA kernels, their wrappers and their
+plain versions.  The counterpart of ``deft_tpu/ops/pallas_dcn.py``.
 
-``deform_sample(x, offsets, mask, radius)`` is deformable im2col: for every
-output pixel and tap of the 3x3 kernel, a bilinear sample of ``x`` at the
-tap's position plus its offset (clamped to +-radius; a negative radius means
-no clamp), with zeros outside the image, times the tap's mask.  It returns
-tap-major patches ``[H*W, 9*C]`` that ``deform_conv`` multiplies with the
-``[9C, Cout]`` weight in one library GEMM, as the JAX package multiplies its
-Pallas kernel's patches outside the kernel.
+Every function takes the JAX functions' layouts: x ``[H, W, C]``, offsets
+``[H, W, 9, 2]`` (dy, dx) float32, mask ``[H, W, 9]`` float32, weight
+``[9*C, Cout]`` tap-major, bias ``[Cout]``.  Sampling is modulated deformable
+im2col: for every output pixel and tap of the 3x3 kernel, a bilinear sample of
+``x`` at the tap's position plus its offset (clamped to +-radius; a negative
+radius means no clamp, for ``deform_sample`` only), with zeros outside the
+image, times the tap's mask; patches are tap-major ``[H*W, 9*C]``.
 
-On a CUDA tensor the wrapper launches ``csrc/dcn_sample.cu`` (built on first
-use, see ``csrc/build.py``) or raises; on a CPU tensor it computes
-``deform_sample_reference``, the plain PyTorch version of the same function.
-Nothing falls back from the card to the plain version.
+One kernel per TPU kernel of the JAX package, each with its launch counter
+(callers reset it to 0 before a run and read it after, to prove the run went
+through the kernel), its wrapper and its plain version:
 
-Layouts follow the JAX functions: x ``[H, W, C]``, offsets
-``[H, W, 9, 2]`` (dy, dx), mask ``[H, W, 9]``.
+============================  ===============================  ======================
+function (counter)            computes                         replaces (pallas_dcn)
+============================  ===============================  ======================
+``deform_sample``             float32 sampling of x as given   ``_cm_kernel`` :585
+(``LAUNCHES``)                                                 and the XLA onehot
+``deform_sample_tap``         sampling of x rounded to bf16,   ``_dcn_tap_kernel``
+(``LAUNCHES_TAP``)            float32 blend, x's dtype out     :338 (:387, :438)
+``deform_sample_onehot``      x and the horizontal weights     ``_onehot_kernel``
+(``LAUNCHES_ONEHOT``)         rounded to bf16, bf16 out        :463 (:511)
+``deform_conv_fused``         bf16-rounded sampling + float32  ``_dcn_kernel``
+(``LAUNCHES_FUSED``)          product + bias in one kernel     :224 (:270)
+============================  ===============================  ======================
+
+Which ``dcn_impl`` computes which function (``models/dcn.py`` dispatches):
+
+* ``gather``: ``deform_conv`` with no clamp (``models/dcn.py::deform_sample``);
+* ``hybrid``, ``onehot``, ``shift``: ``deform_conv``, float32, clamped.  On a
+  TPU the hybrid runs ``_cm_kernel``'s bf16 slab for C <= 128, but on the CPU,
+  where the tests hold the port, the JAX package computes all three in
+  float32 (``deform_conv_hybrid`` takes ``deform_conv_onehot`` off the TPU),
+  and that is the function the port keeps;
+* ``pallas``: ``deform_conv_tap`` (T2), for every sample of a batch;
+* ``pallas_cm``: ``deform_conv_cm``, T1's function as the TPU computes it (a
+  bf16 copy of x through ``deform_sample``, bf16 patches, bf16-rounded
+  weight, float32 product); batched, ``deform_conv`` as the JAX package does;
+* ``deform_conv_fused`` (T3) and ``deform_conv_onehot_sampled`` (T4) have no
+  ``dcn_impl``: nothing in the JAX package calls their TPU kernels.
+
+On a CUDA tensor every wrapper launches its kernel (built on first use, see
+``csrc/build.py``) or raises; on a CPU tensor it computes the ``*_reference``
+plain version of the same function.  Nothing falls back from the card to a
+plain version.
 """
 
 from __future__ import annotations
@@ -27,31 +56,38 @@ import torch
 
 KK = 9                     # taps of the 3x3 kernel
 
-# Number of kernel launches made through ``deform_sample``.  Callers reset it
-# to 0 before a run and read it after to prove the run went through the kernel.
+# Kernel launches made through each wrapper (see the module docstring).
 LAUNCHES = 0
+LAUNCHES_TAP = 0
+LAUNCHES_ONEHOT = 0
+LAUNCHES_FUSED = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {                       # library -> entry -> argtypes
+    "dcn_sample": {name: [_P] * 4 + [_I] * 5 + [_P]
+                   for name in ("dcn_sample", "dcn_sample_tap",
+                                "dcn_sample_onehot")},
+    "dcn_fused": {"dcn_fused": [_P] * 6 + [_I] * 6 + [_P]},
+}
+_libs = {}
 _lib_lock = threading.Lock()
 
 
-def _load_library():
-    """Build (if needed) and load the kernel library once per process."""
-    global _lib
+def _entry(library: str, name: str):
+    """Build (if needed) and load ``library`` once per process; return its C
+    entry point ``name``."""
     with _lib_lock:
-        if _lib is None:
+        if library not in _libs:
             from deft_tpu_torch.csrc.build import build
 
-            lib = ctypes.CDLL(str(build("dcn_sample")))
-            fn = lib.dcn_sample
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            lib = ctypes.CDLL(str(build(library)))
+            for fn_name, argtypes in _SIGNATURES[library].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[library] = lib
+    return getattr(_libs[library], name)
 
 
 def _check_inputs(x, offsets, mask):
@@ -72,6 +108,75 @@ def _check_inputs(x, offsets, mask):
         raise ValueError("x, offsets and mask must be on one device")
 
 
+def _check_clamped(radius: int, name: str):
+    if radius < 0:
+        raise ValueError(f"{name} needs a clamp radius >= 0, got {radius}")
+
+
+def _check_weight(x, weight, bias):
+    c = x.shape[2]
+    if weight.dim() != 2 or weight.shape[0] != KK * c:
+        raise ValueError(f"weight must be [{KK * c}, Cout], got "
+                         f"{tuple(weight.shape)}")
+    if tuple(bias.shape) != (weight.shape[1],):
+        raise ValueError(f"bias must be [{weight.shape[1]}], got "
+                         f"{tuple(bias.shape)}")
+    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError("weight and bias must be float32")
+    if not (weight.device == bias.device == x.device):
+        raise ValueError("weight and bias must be on x's device")
+
+
+def _on_card(name: str, *tensors) -> bool:
+    """False for CPU tensors (the plain version runs); True for contiguous
+    CUDA tensors the kernels can index; raises for anything else."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    h, w, c = tensors[0].shape
+    if h * w * KK * c >= 2 ** 31:
+        raise ValueError(f"{name}: tensor too large for the kernel's indexing")
+    return True
+
+
+def _launch(entry: str, out: torch.Tensor, *args) -> torch.Tensor:
+    """Call a C entry point on the current stream of ``out``'s device."""
+    library = "dcn_fused" if entry == "dcn_fused" else "dcn_sample"
+    fn = _entry(library, entry)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _sample_on_card(entry: str, x, offsets, mask, radius: int,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    h, w, c = x.shape
+    out = torch.empty((h * w, KK * c), dtype=out_dtype, device=x.device)
+    return _launch(entry, out, x.data_ptr(), offsets.data_ptr(),
+                   mask.data_ptr(), out.data_ptr(), h, w, c, int(radius),
+                   _DTYPES[x.dtype])
+
+
+# ---- plain versions ----------------------------------------------------------
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _tap_grid(dev):
+    """Tap offsets (ky, kx) of the 3x3 kernel, each [9] float32."""
+    k = torch.arange(KK, device=dev)
+    return ((k // 3 - 1).float(), (k % 3 - 1).float())
+
+
 def deform_sample_reference(x: torch.Tensor, offsets: torch.Tensor,
                             mask: torch.Tensor, radius: int) -> torch.Tensor:
     """Plain PyTorch deformable im2col: the 4-corner gather of
@@ -84,12 +189,11 @@ def deform_sample_reference(x: torch.Tensor, offsets: torch.Tensor,
     xf = x.float()
     if radius >= 0:
         offsets = offsets.clamp(-radius, radius)
-    kidx = torch.arange(3, dtype=torch.float32, device=dev) - 1.0
-    ky, kx = torch.meshgrid(kidx, kidx, indexing="ij")
+    ky, kx = _tap_grid(dev)
     base_y = (torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-              + ky.reshape(-1)[None, :])                      # [H, KK]
+              + ky[None, :])                                  # [H, KK]
     base_x = (torch.arange(w, dtype=torch.float32, device=dev)[:, None]
-              + kx.reshape(-1)[None, :])                      # [W, KK]
+              + kx[None, :])                                  # [W, KK]
     yy = base_y[:, None, :] + offsets[..., 0]                 # [H, W, KK]
     xx = base_x[None, :, :] + offsets[..., 1]
 
@@ -116,43 +220,196 @@ def deform_sample_reference(x: torch.Tensor, offsets: torch.Tensor,
     return out.reshape(h * w, KK * c).to(x.dtype)
 
 
+def deform_sample_tap_reference(x: torch.Tensor, offsets: torch.Tensor,
+                                mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """Plain version of T2 (``deform_sample_pallas``, pallas_dcn.py:387):
+    the clamped gather on x rounded to bfloat16 (:405), float32 arithmetic,
+    patches ``[H*W, 9*C]`` in x's dtype."""
+    _check_inputs(x, offsets, mask)
+    _check_clamped(radius, "deform_sample_tap")
+    return deform_sample_reference(_round_bf16(x), offsets, mask,
+                                   radius).to(x.dtype)
+
+
+def deform_sample_onehot_reference(x: torch.Tensor, offsets: torch.Tensor,
+                                   mask: torch.Tensor,
+                                   radius: int) -> torch.Tensor:
+    """Plain version of T4 (``deform_conv_pallas_onehot``'s sampling,
+    pallas_dcn.py:463-548), with its roundings where it has them: x rounded
+    to bfloat16, the horizontal hat weights evaluated on the column grid
+    padded by radius + 2 and rounded to bfloat16 (:492-494), the vertical hat
+    weights per integer row shift in float32 (:498), each row's horizontal
+    blend summed first (the one-hot matmul, :500-505), then the vertical
+    weights, then the mask.  Returns bfloat16 patches ``[H*W, 9*C]``."""
+    _check_inputs(x, offsets, mask)
+    _check_clamped(radius, "deform_sample_onehot")
+    h, w, c = x.shape
+    dev = x.device
+    pad = radius + 2
+    flat = _round_bf16(x).reshape(h * w, c)
+    dy = offsets[..., 0].clamp(-radius, radius)               # [H, W, KK]
+    dx = offsets[..., 1].clamp(-radius, radius)
+    ky, kx = _tap_grid(dev)
+    fy = torch.floor(dy)
+    wy = (torch.clamp(1.0 - (dy - fy).abs(), min=0.0),
+          torch.clamp(1.0 - (dy - (fy + 1.0)).abs(), min=0.0))
+    col = (torch.arange(w, dtype=torch.float32, device=dev)[None, :, None]
+           + pad + kx)
+    pos = col + dx
+    px = torch.floor(pos)
+    wx = (_round_bf16(1.0 - (pos - px)), _round_bf16(1.0 - ((px + 1.0) - pos)))
+    row0 = (torch.arange(h, dtype=torch.float32, device=dev)[:, None, None]
+            + ky + fy)
+    col0 = px - pad
+
+    def corner(r, cc):
+        inb = (r >= 0) & (r <= h - 1) & (cc >= 0) & (cc <= w - 1)
+        idx = (r.clamp(0, h - 1) * w + cc.clamp(0, w - 1)).long()
+        return flat[idx.reshape(-1)].reshape(h, w, KK, c) * inb[..., None]
+
+    acc = None
+    for i in range(2):
+        g = (wx[0][..., None] * corner(row0 + i, col0)
+             + wx[1][..., None] * corner(row0 + i, col0 + 1))
+        term = g * wy[i][..., None]
+        acc = term if acc is None else acc + term
+    out = acc * mask[..., None]
+    return out.reshape(h * w, KK * c).to(torch.bfloat16)
+
+
+def deform_conv_fused_reference(x: torch.Tensor, offsets: torch.Tensor,
+                                mask: torch.Tensor, weight: torch.Tensor,
+                                bias: torch.Tensor, radius: int) -> torch.Tensor:
+    """Plain version of T3 (``deform_conv_pallas``, pallas_dcn.py:270): the
+    clamped gather on x rounded to bfloat16 (:297), float32 patches, their
+    float32 product with the weight plus the bias (:263-267); ``[H, W,
+    Cout]`` in x's dtype."""
+    _check_inputs(x, offsets, mask)
+    _check_weight(x, weight, bias)
+    _check_clamped(radius, "deform_conv_fused")
+    h, w, _ = x.shape
+    patches = deform_sample_reference(_round_bf16(x), offsets, mask, radius)
+    return torch.addmm(bias, patches, weight).reshape(h, w, -1).to(x.dtype)
+
+
+# ---- wrappers ----------------------------------------------------------------
+
 def deform_sample(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
                   radius: int) -> torch.Tensor:
-    """Deformable im2col ``[H*W, 9*C]``: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor, an error for anything else."""
+    """Deformable im2col ``[H*W, 9*C]`` in x's dtype, float32 arithmetic
+    (``dcn_sample``, replaces ``_cm_kernel``)."""
     global LAUNCHES
     _check_inputs(x, offsets, mask)
-    if x.device.type == "cpu":
+    if not _on_card("deform_sample", x, offsets, mask):
         return deform_sample_reference(x, offsets, mask, radius)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_sample runs on cuda or cpu, not {x.device}")
-    for name, t in (("x", x), ("offsets", offsets), ("mask", mask)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    h, w, c = x.shape
-    if h * w * KK * c >= 2 ** 31:
-        raise ValueError("patch tensor too large for the kernel's indexing")
-    lib = _load_library()
-    out = torch.empty((h * w, KK * c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcn_sample(x.data_ptr(), offsets.data_ptr(),
-                             mask.data_ptr(), out.data_ptr(), h, w, c,
-                             int(radius), _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"dcn_sample kernel launch failed: CUDA error {err}")
+    out = _sample_on_card("dcn_sample", x, offsets, mask, radius, x.dtype)
     LAUNCHES += 1
     return out
+
+
+def deform_sample_tap(x: torch.Tensor, offsets: torch.Tensor,
+                      mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """T2's sampling (``deform_sample_pallas``, pallas_dcn.py:387): patches
+    ``[H*W, 9*C]`` of x rounded to bfloat16, in x's dtype
+    (``dcn_sample_tap``)."""
+    global LAUNCHES_TAP
+    _check_inputs(x, offsets, mask)
+    _check_clamped(radius, "deform_sample_tap")
+    if not _on_card("deform_sample_tap", x, offsets, mask):
+        return deform_sample_tap_reference(x, offsets, mask, radius)
+    out = _sample_on_card("dcn_sample_tap", x, offsets, mask, radius, x.dtype)
+    LAUNCHES_TAP += 1
+    return out
+
+
+def deform_sample_onehot(x: torch.Tensor, offsets: torch.Tensor,
+                         mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """T4's sampling (``deform_conv_pallas_onehot``, pallas_dcn.py:511):
+    bfloat16 patches ``[H*W, 9*C]`` (``dcn_sample_onehot``)."""
+    global LAUNCHES_ONEHOT
+    _check_inputs(x, offsets, mask)
+    _check_clamped(radius, "deform_sample_onehot")
+    if not _on_card("deform_sample_onehot", x, offsets, mask):
+        return deform_sample_onehot_reference(x, offsets, mask, radius)
+    out = _sample_on_card("dcn_sample_onehot", x, offsets, mask, radius,
+                          torch.bfloat16)
+    LAUNCHES_ONEHOT += 1
+    return out
+
+
+def deform_conv_fused(x: torch.Tensor, offsets: torch.Tensor,
+                      mask: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, radius: int) -> torch.Tensor:
+    """T3 (``deform_conv_pallas``, pallas_dcn.py:270): sampling, the weight
+    product and the bias in one kernel (``dcn_fused``); ``[H, W, Cout]`` in
+    x's dtype."""
+    global LAUNCHES_FUSED
+    _check_inputs(x, offsets, mask)
+    _check_weight(x, weight, bias)
+    _check_clamped(radius, "deform_conv_fused")
+    if not _on_card("deform_conv_fused", x, offsets, mask, weight, bias):
+        return deform_conv_fused_reference(x, offsets, mask, weight, bias,
+                                           radius)
+    h, w, c = x.shape
+    cout = weight.shape[1]
+    out = torch.empty((h, w, cout), dtype=x.dtype, device=x.device)
+    _launch("dcn_fused", out, x.data_ptr(), offsets.data_ptr(),
+            mask.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), h, w, c, cout, int(radius), _DTYPES[x.dtype])
+    LAUNCHES_FUSED += 1
+    return out
+
+
+# ---- convolutions: sampling, then the [9C, Cout] product as a library GEMM --
+
+def _product(patches, weight, bias, h, w, out_dtype):
+    """float32 ``patches @ weight + bias`` -> ``[H, W, Cout]``."""
+    out = torch.addmm(bias.float(), patches.float(), weight.float())
+    return out.reshape(h, w, -1).to(out_dtype)
 
 
 def deform_conv(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
                 weight: torch.Tensor, bias: torch.Tensor,
                 radius: int) -> torch.Tensor:
     """Modulated deformable 3x3 conv with the JAX functions' contract
-    (``deform_conv_onehot``): x ``[H, W, C]``, weight ``[9*C, Cout]`` tap-major,
-    bias ``[Cout]`` -> ``[H, W, Cout]``."""
+    (``deform_conv_onehot``): ``deform_sample`` patches times the weight, in
+    x's dtype -> ``[H, W, Cout]``."""
     h, w, _ = x.shape
     patches = deform_sample(x, offsets, mask, radius)
     out = torch.addmm(bias.to(patches.dtype), patches,
                       weight.to(patches.dtype))
     return out.reshape(h, w, -1)
+
+
+def deform_conv_tap(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
+                    weight: torch.Tensor, bias: torch.Tensor,
+                    radius: int) -> torch.Tensor:
+    """``deform_conv_pallas_tap`` (pallas_dcn.py:438): T2's patches, then the
+    float32 product with the weight plus the bias (:452), in x's dtype."""
+    h, w, _ = x.shape
+    return _product(deform_sample_tap(x, offsets, mask, radius), weight, bias,
+                    h, w, x.dtype)
+
+
+def deform_conv_onehot_sampled(x: torch.Tensor, offsets: torch.Tensor,
+                               mask: torch.Tensor, weight: torch.Tensor,
+                               bias: torch.Tensor, radius: int) -> torch.Tensor:
+    """``deform_conv_pallas_onehot`` (pallas_dcn.py:511): T4's bfloat16
+    patches, then the float32 product with the weight plus the bias (:573),
+    in x's dtype."""
+    h, w, _ = x.shape
+    return _product(deform_sample_onehot(x, offsets, mask, radius), weight,
+                    bias, h, w, x.dtype)
+
+
+def deform_conv_cm(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
+                   weight: torch.Tensor, bias: torch.Tensor,
+                   radius: int) -> torch.Tensor:
+    """``deform_conv_pallas_cm`` (pallas_dcn.py:669-729) as the TPU computes
+    it: ``deform_sample`` on a bfloat16 copy of x (bfloat16 patches), their
+    float32 product with the weight rounded to bfloat16, plus the bias, in
+    x's dtype (:726-728)."""
+    h, w, _ = x.shape
+    patches = deform_sample(x.to(torch.bfloat16).contiguous(), offsets, mask,
+                            radius)
+    return _product(patches, _round_bf16(weight), bias, h, w, x.dtype)

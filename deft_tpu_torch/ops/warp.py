@@ -43,8 +43,14 @@ def warp_affine_separable(image: torch.Tensor, inv_tf, out_h: int,
     dev = image.device
     rx = hat_matrix(tf[0], tf[2], out_w, w, dev)             # [out_w, W]
     ry = hat_matrix(tf[4], tf[5], out_h, h, dev)             # [out_h, H]
-    img = image.float()
-    t = torch.einsum("bhwc,ow->bhoc", img, rx)
+    return warp_affine_with(image, rx, ry)
+
+
+def warp_affine_with(image: torch.Tensor, rx: torch.Tensor,
+                     ry: torch.Tensor) -> torch.Tensor:
+    """The warp with its hat matrices given: [B, H, W, C] -> float32
+    [B, out_h, out_w, C]."""
+    t = torch.einsum("bhwc,ow->bhoc", image.float(), rx)
     return torch.einsum("bhoc,ph->bpoc", t, ry)
 
 

@@ -111,15 +111,25 @@ class DeviceFeatureRecorder:
         self.embeds[self.slot_of[frame_index]] = padded
 
     def ingest(self, frame_index: int, sims: np.ndarray, n: int):
-        """Record a frame whose slot-indexed window similarity ``sims``
-        [W, M, M+1] was evaluated against the buffer BEFORE this frame.
+        """Record a frame whose window similarity ``sims`` was evaluated
+        against the buffer BEFORE this frame, in either layout
+        (``deft_tpu/tracking/tracker.py:122-183``):
+
+        * ``[W, M, M+1]`` slot-indexed (the full ring);
+        * ``[F < W, M, M+1]`` freshest-first (the frame programs'
+          ``sim_window``): row ``rank`` is the rank-th most recently
+          buffered frame; buffered frames beyond F rows carry a temporal
+          decay <= DECAY2^((F+1)/3) ~ 0 and are recorded as exact zeros.
 
         Applies the temporal decay weighting (tracker.py:76-90) into ONE
         contiguous slab [P, pre_n_max, n+1] that Tracker.get_similarity
         gathers from, and mirrors the ring bookkeeping (slot = ptr % W,
         non-empty frames only).
         """
+        if frame_index in self.slot_of or n == 0:
+            return
         m_frame = freshness_window(self.dataset)
+        windowed = sims.shape[0] != self.window
         prev = list(reversed(self.frames))      # newest pre-frame first
         p = len(prev)
         pre_n_max = int(self.counts.max()) if p else 0
@@ -132,11 +142,13 @@ class DeviceFeatureRecorder:
             delta = np.where(dfv < m_frame, DECAY, DECAY2) ** (dfv / 3.0)
             slots = np.asarray([self.slot_of[f] for f in prev], np.int64)
             slab_pre_ns[:] = self.counts[slots]
-            src = np.asarray(sims, np.float32)[slots]
+            k = min(p, sims.shape[0]) if windowed else p
+            src = (np.asarray(sims[:k], np.float32) if windowed
+                   else np.asarray(sims, np.float32)[slots])
             mask = (np.arange(pre_n_max)[None, :]
-                    < slab_pre_ns[:, None])[:, :, None]
-            slab[:] = (src[:, :pre_n_max, : n + 1]
-                       * delta[:, None, None].astype(np.float32) * mask)
+                    < slab_pre_ns[:k, None])[:, :, None]
+            slab[:k] = (src[:, :pre_n_max, : n + 1]
+                        * delta[:k, None, None].astype(np.float32) * mask)
             slab_f2i = {pre_frame: rank for rank, pre_frame in enumerate(prev)}
         self.slab = (frame_index, slab, slab_f2i, slab_pre_ns)
 
@@ -401,12 +413,16 @@ class Tracker:
             else:
                 track.re_activate(det, self.frame_id, kf_result=pre)
 
-    def update(self, detections_in: List[Dict], embeddings) -> List[STrack]:
+    def update(self, detections_in: List[Dict], embeddings,
+               sims: Optional[np.ndarray] = None) -> List[STrack]:
         """One frame.
 
         detections_in: list of dicts with 'bbox' (tlbr) and 'score';
         embeddings: [n, E] appearance embeddings aligned with detections_in
-        (a tensor on any device, or numpy).
+        (a tensor on any device, or numpy), unused when ``sims`` is given;
+        sims: the window similarity a frame program already computed
+        (``DeviceFeatureRecorder.ingest`` layouts); the recorder then makes
+        no similarity call of its own (tracker.py:677-721).
         """
         self.frame_id += 1
         activated: List[STrack] = []
@@ -420,7 +436,11 @@ class Tracker:
                 STrack(STrack.tlbr_to_tlwh(d["bbox"]), d["score"], node)
                 for d, node in zip(detections_in, nodes)
             ]
-            self.recorder.update(self.frame_id, embeddings[:n_det])
+            if sims is not None:
+                self.recorder.ingest(self.frame_id, sims,
+                                     min(n_det, self.recorder.max_object))
+            else:
+                self.recorder.update(self.frame_id, embeddings[:n_det])
         else:
             detections = []
 

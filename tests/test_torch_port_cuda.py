@@ -56,3 +56,64 @@ def test_dcn_sample_rejects_non_contiguous(cuda_device):
     with pytest.raises(ValueError):
         cuda_dcn.deform_sample(x.transpose(0, 1), offs.transpose(0, 1),
                                mask.transpose(0, 1), 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
+                                   (34, 60, 256)])
+def test_dcn_sample_tap_matches_plain(cuda_device, h, w, c, dtype):
+    """T2's kernel: within 1e-5 * max|x| in float32, one bf16 step of
+    max|x| (2**-7 * max|x|) in bf16."""
+    x, offs, mask = _inputs(h, w, c, 7, cuda_device, dtype)
+    before = cuda_dcn.LAUNCHES_TAP
+    got = cuda_dcn.deform_sample_tap(x, offs, mask, 4)
+    torch.cuda.synchronize()
+    assert cuda_dcn.LAUNCHES_TAP == before + 1
+    assert got.dtype == dtype and got.shape == (h * w, 9 * c)
+    ref = cuda_dcn.deform_sample_tap_reference(x, offs, mask, 4)
+    bound = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * x.abs().max()
+    assert (got.float() - ref.float()).abs().max() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
+                                   (34, 60, 256)])
+def test_dcn_sample_onehot_matches_plain(cuda_device, h, w, c, dtype):
+    """T4's kernel: bf16 patches within one bf16 step of max|patch|."""
+    x, offs, mask = _inputs(h, w, c, 8, cuda_device, dtype)
+    before = cuda_dcn.LAUNCHES_ONEHOT
+    got = cuda_dcn.deform_sample_onehot(x, offs, mask, 4)
+    torch.cuda.synchronize()
+    assert cuda_dcn.LAUNCHES_ONEHOT == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (h * w, 9 * c)
+    ref = cuda_dcn.deform_sample_onehot_reference(x, offs, mask, 4).float()
+    assert (got.float() - ref).abs().max() <= 2.0 ** -7 * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c,cout", [(13, 19, 16, 6), (11, 21, 40, 70),
+                                        (9, 7, 3, 64), (34, 60, 256, 128)])
+def test_dcn_fused_matches_plain(cuda_device, h, w, c, cout, dtype):
+    """T3's kernel, ragged pixel and channel tiles included: within 1e-4 *
+    max|out| in float32 (sums of 9C products in another order), one bf16
+    step of max|out| in bf16."""
+    x, offs, mask = _inputs(h, w, c, 9, cuda_device, dtype)
+    rng = np.random.RandomState(10)
+    wt = torch.from_numpy((rng.randn(9 * c, cout) / np.sqrt(9 * c)).astype(
+        np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda_device)
+    before = cuda_dcn.LAUNCHES_FUSED
+    got = cuda_dcn.deform_conv_fused(x, offs, mask, wt, b, 4)
+    torch.cuda.synchronize()
+    assert cuda_dcn.LAUNCHES_FUSED == before + 1
+    assert got.dtype == dtype and got.shape == (h, w, cout)
+    ref = cuda_dcn.deform_conv_fused_reference(x, offs, mask, wt, b, 4).float()
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * ref.abs().max()
+    assert (got.float() - ref).abs().max() <= tol
+
+
+def test_clamped_kernels_reject_negative_radius(cuda_device):
+    x, offs, mask = _inputs(8, 10, 4, 6, cuda_device, torch.float32)
+    for fn in (cuda_dcn.deform_sample_tap, cuda_dcn.deform_sample_onehot):
+        with pytest.raises(ValueError):
+            fn(x, offs, mask, -1)

@@ -110,3 +110,68 @@ def test_lstm_and_nuscenes_wait_for_later_slices():
         Tracker("mot", M, E, similarity_fn=None, use_lstm=True)
     with pytest.raises(NotImplementedError):
         Tracker("nuscenes", M, E, similarity_fn=None)
+
+
+def _frame_program_sims(frames, window=50, sim_window=12):
+    """The similarities a frame program hands the tracker, made with numpy
+    the way ``DEFTNet._sim_and_record`` makes them: per frame, the full
+    slot-indexed [W, M, M+1] table against the ring BEFORE the frame, its
+    freshest-first [F, M, M+1] rows ``(ptr - 1 - i) % W``, then the ring
+    write of a non-empty frame."""
+    ring = np.zeros((window, M, E), np.float32)
+    counts = np.zeros((window,), np.int32)
+    ptr = 0
+    out = []
+    for dets, embs in frames:
+        n = min(len(dets), M)
+        cur = np.zeros((M, E), np.float32)
+        cur[:n] = embs[:n]
+        full = similarity(ring, counts, cur, n)
+        out.append((full, full[(ptr - 1 - np.arange(sim_window)) % window]))
+        if n > 0:
+            ring[ptr % window] = cur
+            counts[ptr % window] = n
+            ptr += 1
+    return out
+
+
+@pytest.mark.parametrize("layout", ["freshest_first", "slot_indexed"])
+def test_update_with_sims_matches_jax(layout):
+    """``Tracker.update(dets, None, sims=...)`` (the runner's path: no
+    similarity call of the tracker's own) against the JAX tracker given the
+    same sims, in both layouts ``ingest`` accepts; 24 frames, so the
+    freshest-first window of 12 drops frames that the ring still holds.
+    The recorders' decayed slabs agree exactly."""
+    frames = scene(11)
+    sims = _frame_program_sims(frames)
+    jt = JaxTracker("mot", M, E, similarity_fn=None)
+    pt = Tracker("mot", M, E, similarity_fn=None, device="cpu")
+    for f, ((dets, embs), (full, fresh)) in enumerate(zip(frames, sims)):
+        s = fresh if layout == "freshest_first" else full
+        j_out = jt.update([dict(d) for d in dets], embs, sims=s)
+        p_out = pt.update([dict(d) for d in dets], None, sims=s)
+        assert [t.track_id for t in p_out] == [t.track_id for t in j_out], f
+        assert _state([pt.tracked_stracks, pt.lost_stracks]) == _state(
+            [jt.tracked_stracks, jt.lost_stracks]), f
+        for a, b in zip(p_out, j_out):
+            np.testing.assert_allclose(a.tlbr, b.tlbr, rtol=0, atol=1e-6)
+        (jf, jslab, jf2i, jns), (pf, pslab, pf2i, pns) = (jt.recorder.slab,
+                                                          pt.recorder.slab)
+        assert (jf, jf2i) == (pf, pf2i)
+        np.testing.assert_array_equal(pslab, jslab)
+        np.testing.assert_array_equal(pns, jns)
+    assert len(pt.recorder.frames) == len(frames) > 12
+
+
+def test_windowed_sims_track_like_the_full_ring():
+    """The freshest-first window gives the tracks of the full table: rows
+    past F carry a decay <= 0.01^((F+1)/3) ~ 0 (tracker.py:76-90)."""
+    frames = scene(12)
+    sims = _frame_program_sims(frames)
+    ids = {}
+    for layout in (0, 1):
+        pt = Tracker("mot", M, E, similarity_fn=None, device="cpu")
+        ids[layout] = [[t.track_id for t in pt.update(
+            [dict(d) for d in dets], None, sims=s[layout])]
+            for (dets, _), s in zip(frames, sims)]
+    assert ids[0] == ids[1]
