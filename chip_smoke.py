@@ -20,6 +20,10 @@ full width (DLA-34 with DCNv2 neck, 544x960 input, K=100, max_object=100,
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel.
+The kernel phase also checks that ``dcn_sample_tap`` on x equals
+``dcn_sample`` on x rounded to bf16 bit for bit, that ``dcn_fused`` (split-K,
+no atomics) gives the same bits on two calls, and times ``dcn_sample_tap``
+plus the GEMM that reads its patches.
 ``dcn_fused`` and ``dcn_sample_onehot`` replace TPU kernels that nothing in
 the JAX package calls, so no path reaches them: their launches are the
 kernel phase's.  It imports nothing of JAX.
@@ -32,6 +36,7 @@ that last line; nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -56,6 +61,7 @@ from deft_tpu_torch.tracking.basetrack import IdAllocator
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 RADIUS = 4                     # mot_config's dcn_offset_range
 FRAMES = 30
 # DLA-34 DCNv2 layers at 544x960 input: (H, W, Cin, Cout, layers per frame),
@@ -125,11 +131,19 @@ def cuda_times(fn, warmup: int = 3, reps: int = 21) -> float:
     return statistics.median(times)
 
 
+@functools.lru_cache(maxsize=None)
+def capture_stream() -> torch.cuda.Stream:
+    """One side stream for every capture: PyTorch keeps a cuBLAS workspace
+    for each stream that has run a GEMM, so a fresh pool stream per capture
+    leaves workspaces behind that every later peak-memory reading counts."""
+    return torch.cuda.Stream()
+
+
 def graph_times(fn, per_graph: int = 20, reps: int = 7) -> float:
     """Median device milliseconds of one ``fn()`` call with no host launch
     overhead: ``per_graph`` calls captured back to back in a CUDA graph,
     the graph replayed ``reps`` times between CUDA events."""
-    side = torch.cuda.Stream()
+    side = capture_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -168,20 +182,27 @@ def make_offsets(rng, h, w, regime: str) -> np.ndarray:
 
 
 def bound_times(h, w, c, in_bytes, out_bytes, cout=0):
-    """Least time for one call, as (bytes_ms, operations_ms): the inputs read
-    once and the output written once over the memory rate; 8 flops per
+    """Least time for one call, as (bytes_ms, ffma_ms, route_ms): the inputs
+    read once and the output written once over the memory rate; 8 flops per
     sampled patch element plus ~40 per (pixel, tap), plus 2 per
     multiply-add of the [9C, Cout] product when ``cout`` (the fused kernel,
-    whose output is [H*W, Cout] instead of the patches), over the float32
-    rate.  The bound is the larger of the two."""
+    whose output is [H*W, Cout] instead of the patches).  ``ffma_ms`` counts
+    all of them at the float32 rate outside the tensor cores; ``route_ms``
+    counts them on the units the kernels use: the sampling at the float32
+    rate, the fused kernel's product three times (3xTF32) at the TF32
+    tensor-core rate, whichever takes longer.  The bound is the larger of
+    the bytes and the route's operations."""
     nbytes = h * w * c * in_bytes + h * w * 9 * 2 * 4 + h * w * 9 * 4
-    flops = h * w * 9 * (8 * c + 40)
+    sample_ms = h * w * 9 * (8 * c + 40) / FP32_FLOPS_PER_S * 1e3
+    ffma_ms = route_ms = sample_ms
     if cout:
         nbytes += 9 * c * cout * 4 + cout * 4 + h * w * cout * in_bytes
-        flops += 2 * h * w * 9 * c * cout
+        product = 2 * h * w * 9 * c * cout
+        ffma_ms += product / FP32_FLOPS_PER_S * 1e3
+        route_ms = max(sample_ms, 3 * product / TF32_FLOPS_PER_S * 1e3)
     else:
         nbytes += h * w * 9 * c * out_bytes
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, ffma_ms, route_ms
 
 
 def grid_sample_yardstick(x, offsets, mask, radius):
@@ -247,10 +268,27 @@ def kernel_calls(name, x, offsets, mask, weight, bias):
             sample, tol, bound_times(h, w, c, x.element_size(), out_bytes))
 
 
+def bitwise_checks(x, offsets, mask, weight, bias, shape):
+    """dcn_sample_tap(x) == dcn_sample(x rounded to bf16), and two
+    dcn_fused calls give the same bits."""
+    tap = cuda_dcn.deform_sample_tap(x, offsets, mask, RADIUS)
+    plain = cuda_dcn.deform_sample(x.bfloat16().float(), offsets, mask,
+                                   RADIUS)
+    if not torch.equal(tap, plain):
+        raise AssertionError(f"dcn_sample_tap differs from dcn_sample on a "
+                             f"bf16-rounded x at {shape}")
+    first = cuda_dcn.deform_conv_fused(x, offsets, mask, weight, bias, RADIUS)
+    second = cuda_dcn.deform_conv_fused(x, offsets, mask, weight, bias, RADIUS)
+    if not torch.equal(first, second):
+        raise AssertionError(f"dcn_fused gives other bits on a second call "
+                             f"at {shape}")
+
+
 def kernel_phase():
     """Every kernel against its plain version at the 7 layer shapes, with
     'trained' offsets and with offsets past the clamp, plus bf16 inputs at
-    the largest shape; times and bounds per call."""
+    the largest shape; the bitwise checks at every float32 case; times and
+    bounds per call, and T2 with the GEMM that reads its patches."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
@@ -268,12 +306,15 @@ def kernel_phase():
                                   ).to(dev)
         bias = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)
                                 ).to(dev)
+        f32 = dtype == torch.float32
+        if f32:
+            bitwise_checks(x, offsets, mask, weight, bias, (h, w, c, cout))
         for name in KERNELS:
             if dtype == torch.bfloat16 and name not in ("dcn_sample",
                                                         "dcn_fused"):
                 continue
-            kernel, plain, library, tol_rel, (t_bytes, t_ops) = kernel_calls(
-                name, x, offsets, mask, weight, bias)
+            kernel, plain, library, tol_rel, (t_bytes, t_ffma, t_ops) = (
+                kernel_calls(name, x, offsets, mask, weight, bias))
             got = kernel()
             torch.cuda.synchronize()
             ref = plain()
@@ -294,7 +335,16 @@ def kernel_phase():
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                   "bound_operations_ffma_ms": t_ffma,
                    "max_abs_err": err, "tolerance": tol}
+            if f32 and name == "dcn_sample_tap":
+                row["with_gemm_ms"] = graph_times(
+                    lambda: cuda_dcn.deform_conv_tap(x, offsets, mask, weight,
+                                                     bias, RADIUS))
+            if f32 and name in ("dcn_sample_tap", "dcn_fused"):
+                row["bitwise_check"] = ("equals dcn_sample on bf16-rounded x"
+                                        if name == "dcn_sample_tap" else
+                                        "same bits on two calls")
             emit(row)
             rows.append(row)
     return rows
@@ -435,8 +485,10 @@ def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
     det.reset_tracking()
 
     sync()
+    resident = None
     if det.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
     reset_launches()
     times, seq, n_tracks = [], [], []
     for frame in frames:
@@ -487,7 +539,8 @@ def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
            "dets_per_frame_median": statistics.median(n_dets),
            "tracks_per_frame_median": statistics.median(n_tracks),
            "dcn_layers": n_dcn, "launches": count,
-           "peak_memory_bytes": peak, "offset_abs_q01_q50_q99": offset_q,
+           "peak_memory_bytes": peak, "resident_at_start_bytes": resident,
+           "offset_abs_q01_q50_q99": offset_q,
            "card_vs_cpu_max_rel_err": ref_rel,
            "stage_ms_median": {k: statistics.median(v)
                                for k, v in stages.items()}}
@@ -532,8 +585,10 @@ def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
         det.ids = IdAllocator()       # every run numbers its tracks from 1
         runner.reset()
         sync()
+        resident = None
         if on_card:
             torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
         reset_launches()
         t0 = time.perf_counter()
         seq = runner.track_sequence(frames)
@@ -566,6 +621,7 @@ def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
             "dcn_layers": n_dcn, "launches": count,
             "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                   if on_card else None),
+            "resident_at_start_bytes": resident,
             "offset_abs_q01_q50_q99": offset_q}
         # per frame: track id -> box (a frame's tracks come in the order of
         # its detections)
@@ -699,7 +755,8 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches):
                      and r["dtype"] == "float32"]
         total = {key: sum(r[key] * r["count"] for r in per_frame)
                  for key in ("kernel_ms", "plain_ms", "library_ms",
-                             "bound_bytes_ms", "bound_operations_ms")}
+                             "bound_bytes_ms", "bound_operations_ms",
+                             "bound_operations_ffma_ms")}
         path = {"dcn_sample": ("Detector.run, dcn_impl=hybrid",
                                slice_launches),
                 "dcn_sample_tap": ("PipelinedRunner chunk 1, dcn_impl=pallas",
@@ -708,7 +765,7 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches):
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
             kernel_launches[name]))
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": count,
             "path": path_name,
@@ -718,7 +775,16 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches):
                             total["bound_operations_ms"]),
             "bound_by": ("bytes" if total["bound_bytes_ms"]
                          >= total["bound_operations_ms"] else "operations"),
-            "library_ms": total["library_ms"]})
+            "library_ms": total["library_ms"]}
+        if name == "dcn_fused":
+            entry["product"] = "3xTF32 mma.sync.m16n8k8, split-K"
+            entry["bound_ffma_ms"] = max(total["bound_bytes_ms"],
+                                         total["bound_operations_ffma_ms"])
+        if name == "dcn_sample_tap":
+            entry["store"] = "streaming (st.global.cs)"
+            entry["with_gemm_ms"] = sum(r["with_gemm_ms"] * r["count"]
+                                        for r in per_frame)
+        entries.append(entry)
     return {"kernels": entries}
 
 

@@ -3,8 +3,10 @@
 Each ``<name>.cu`` here is compiled by ``nvcc`` into its own shared library
 with a plain C interface, ``build/kernels/lib<name>.so`` under the repository
 root, and loaded with ``ctypes`` (no PyTorch headers: seconds per build
-instead of minutes).  A library is rebuilt when it is missing or older than
-its source, so the first call on a fresh checkout builds everything.
+instead of minutes).  The sources include the shared headers here
+(``*.cuh``, found through ``-I`` this directory).  A library is rebuilt when
+it is missing or older than its source or any header, so the first call on
+a fresh checkout builds everything and a header edit rebuilds every kernel.
 """
 
 from __future__ import annotations
@@ -15,12 +17,12 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC)]
 
 
 def kernel_names() -> List[str]:
@@ -44,12 +46,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def is_stale(lib: Path, sources: Iterable[Path]) -> bool:
+    """True if ``lib`` is missing or older than any of ``sources``."""
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources)
+
+
 def build(name: str) -> Path:
-    """Compile ``<name>.cu`` unless its library is up to date; return the
-    library's path.  Raises with nvcc's output if the compile fails."""
+    """Compile ``<name>.cu`` unless its library is newer than the source and
+    every shared header; return the library's path.  Raises with nvcc's
+    output if the compile fails."""
     src = CSRC / f"{name}.cu"
     lib = library_path(name)
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    if not is_stale(lib, [src, *CSRC.glob("*.cuh")]):
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")

@@ -37,21 +37,35 @@
 // back once more.  The operations (8 per element) are far below the card's
 // float32 rate.
 //
-// Design (a first, correct version):
-//   * each block takes TILE_PIX output pixels; phase 1 computes, once per
-//     (pixel, tap), the four corner indices and weights and keeps them in
-//     shared memory;
-//   * phase 2 strides the block's threads over (pixel, tap, channel) with the
-//     channel fastest, so a warp reads neighbouring channels of each corner
-//     and writes one contiguous stretch of the patch rows; channels move in
-//     16-byte packs where C and the pointers allow it.
+// Design:
+//   * the grid is (entry tile, channel slice).  An entry is one (pixel, tap)
+//     row of the patches; a block takes 256 consecutive entries, 32 per
+//     warp, and a slice of the channels, whose width the wrapper picks from
+//     the layer's shape (ops/cuda_dcn.py::plan_sample) so that the small
+//     spatial layers, whose entry tiles alone leave most SMs idle, still
+//     fill the card.  Each slice redoes the ~40 flops of an entry's corner
+//     arithmetic against 8 flops per channel;
+//   * no block barrier: each lane computes the corner indices and weights
+//     of one of its warp's 32 entries (dcn_common.cuh) into a warp-private
+//     slot of shared memory, and after __syncwarp the warp's lanes stride
+//     over (entry, channel pack) with the pack fastest, so a warp reads
+//     neighbouring channels of each corner and writes contiguous stretches
+//     of the patch rows (the whole stretch where one slice holds all C);
+//     channels move in 16-byte packs where C and the pointers allow it;
+//   * stores are streaming (st.global.cs, evict-first): the GEMM reads the
+//     patches back at once, and T2 plus that GEMM measured no slower with
+//     them than with plain stores (PERF.md keeps both times);
+//   * the grid does not touch an element's arithmetic: the same corner
+//     weights, the same bf16 round of each corner value (dcn_sample_tap) and
+//     the same order of the four FMAs in every mode, so dcn_sample_tap(x)
+//     equals dcn_sample(x rounded to bf16) bit for bit in float32.
 //   * There is no offset gate and no shift loop: the TPU kernels needed those
 //     because a TPU cannot gather; the GPU gathers the four corners.
 //   * The onehot entry repeats the TPU kernel's own weight arithmetic
 //     (horizontal hat on the padded column grid, vertical hat per integer row
 //     shift) so that its bfloat16 roundings fall where the TPU kernel's do.
-// A later version fuses the sampling into the GEMM's shared-memory tiles so
-// the patches never reach device memory (dcn_fused.cu does so with FFMA).
+// dcn_fused.cu fuses the same sampling into tensor-core GEMM tiles, so that
+// its patches never reach device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,119 +73,112 @@
 
 #include <type_traits>
 
+#include "dcn_common.cuh"
+
 namespace {
 
-constexpr int KK = 9;          // taps of the 3x3 kernel
-constexpr int TILE_PIX = 32;   // output pixels per block
-constexpr int THREADS = 256;
+using namespace dcn;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int WARP_ENT = 32;                  // (pixel, tap) entries a warp
+constexpr int TILE_ENT = WARPS * WARP_ENT;    // entries a block
 
 enum Mode { kPlain = 0, kTap = 1, kOnehot = 2 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_float(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_float(float v, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(v);
-}
-// round-to-nearest-even to bfloat16, as astype(bfloat16) does
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// *dst = v, evict-first (st.global.cs)
+template <typename O, int V>
+__device__ __forceinline__ void store(Pack<O, V>* dst, const Pack<O, V>& v) {
+  constexpr int bytes = sizeof(Pack<O, V>);
+  if constexpr (bytes == 16) {
+    __stcs(reinterpret_cast<int4*>(dst), *reinterpret_cast<const int4*>(&v));
+  } else if constexpr (bytes == 8) {
+    __stcs(reinterpret_cast<int2*>(dst), *reinterpret_cast<const int2*>(&v));
+  } else if constexpr (bytes == 4) {
+    __stcs(reinterpret_cast<int*>(dst), *reinterpret_cast<const int*>(&v));
+  } else {
+    static_assert(bytes == 2, "pack size");
+    __stcs(reinterpret_cast<unsigned short*>(dst),
+           *reinterpret_cast<const unsigned short*>(&v));
+  }
 }
 
-template <typename T, int V>
-struct __align__(sizeof(T) * V) Pack {
-  T v[V];
-};
-
+// slice_packs: V-channel packs per channel slice (blockIdx.y)
 template <typename T, typename O, int V, int MODE>
 __global__ void __launch_bounds__(THREADS)
 dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
                   const float* __restrict__ mask, O* __restrict__ out, int H,
-                  int W, int C, int radius) {
-  // per (pixel, tap): corner index (-1 outside the image, onehot only) and
+                  int W, int C, int radius, int slice_packs) {
+  // per warp and entry: corner index (-1 outside the image, onehot only) and
   // weight; plain/tap fold the mask into the four weights, onehot keeps
   // (wx0, wx1, wy0, wy1) and the mask apart
-  __shared__ int s_idx[TILE_PIX * KK][4];
-  __shared__ float s_w[TILE_PIX * KK][4];
-  __shared__ float s_m[TILE_PIX * KK];
+  __shared__ int s_idx[WARPS][WARP_ENT][4];
+  __shared__ float s_w[WARPS][WARP_ENT][4];
+  __shared__ float s_m[WARPS][WARP_ENT];
 
-  const int hw = H * W;
-  const int p0 = blockIdx.x * TILE_PIX;
-  const int npix = min(TILE_PIX, hw - p0);
-  const int nent = npix * KK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nent = H * W * KK;
+  const int e0 = blockIdx.x * TILE_ENT + warp * WARP_ENT;
+  if (e0 >= nent) return;
+  const int n_here = min(WARP_ENT, nent - e0);
 
-  // phase 1: sample positions, one (pixel, tap) per thread
-  for (int e = threadIdx.x; e < nent; e += blockDim.x) {
-    const int p = p0 + e / KK;
-    const int k = e % KK;
-    const int h = p / W;
-    const int w = p - h * W;
-    float dy = offsets[(size_t)p * (2 * KK) + 2 * k];
-    float dx = offsets[(size_t)p * (2 * KK) + 2 * k + 1];
-    if (radius >= 0) {
-      const float r = (float)radius;
-      dy = fminf(fmaxf(dy, -r), r);
-      dx = fminf(fmaxf(dx, -r), r);
-    }
-    const float m = mask[(size_t)p * KK + k];
+  // phase 1: sample positions, one entry per lane
+  if (lane < n_here) {
+    const int p = (e0 + lane) / KK;
+    const int k = e0 + lane - p * KK;
     if constexpr (MODE == kOnehot) {
       // vertical: hat(dy - u) for the integer row shifts u = floor(dy),
       // floor(dy) + 1 (pallas_dcn.py:498); horizontal: hat on the column
       // grid padded by radius + 2 (:492-494), rounded to bfloat16
+      const int h = p / W;
+      const int w = p - h * W;
+      const float r = (float)radius;
+      const float dy =
+          fminf(fmaxf(offsets[(size_t)p * (2 * KK) + 2 * k], -r), r);
+      const float dx =
+          fminf(fmaxf(offsets[(size_t)p * (2 * KK) + 2 * k + 1], -r), r);
       const int pad = radius + 2;
       const float fy = floorf(dy);
       const float pos = (float)(w + pad + k % 3 - 1) + dx;
       const float px = floorf(pos);
-      s_w[e][0] = round_bf16(1.0f - (pos - px));
-      s_w[e][1] = round_bf16(1.0f - ((px + 1.0f) - pos));
-      s_w[e][2] = fmaxf(0.0f, 1.0f - fabsf(dy - fy));
-      s_w[e][3] = fmaxf(0.0f, 1.0f - fabsf(dy - (fy + 1.0f)));
-      s_m[e] = m;
+      float* sw = s_w[warp][lane];
+      sw[0] = round_bf16(1.0f - (pos - px));
+      sw[1] = round_bf16(1.0f - ((px + 1.0f) - pos));
+      sw[2] = fmaxf(0.0f, 1.0f - fabsf(dy - fy));
+      sw[3] = fmaxf(0.0f, 1.0f - fabsf(dy - (fy + 1.0f)));
+      s_m[warp][lane] = mask[(size_t)p * KK + k];
       const int r0 = h + k / 3 - 1 + (int)fy;
       const int c0 = (int)px - pad;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int r = r0 + (j >> 1);
-        const int c = c0 + (j & 1);
-        s_idx[e][j] = (r >= 0 && r < H && c >= 0 && c < W) ? r * W + c : -1;
+        const int rr = r0 + (j >> 1);
+        const int cc = c0 + (j & 1);
+        s_idx[warp][lane][j] =
+            (rr >= 0 && rr < H && cc >= 0 && cc < W) ? rr * W + cc : -1;
       }
     } else {
-      // same float operations as deform_sample: (index + tap) + offset
-      const float yy = (float)(h + k / 3 - 1) + dy;
-      const float xx = (float)(w + k % 3 - 1) + dx;
-      const float y0 = floorf(yy);
-      const float x0 = floorf(xx);
-      const float wy1 = yy - y0;
-      const float wx1 = xx - x0;
-      const float wy0 = 1.0f - wy1;
-      const float wx0 = 1.0f - wx1;
-      const float wgt[4] = {wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float yc = y0 + (float)(j >> 1);
-        const float xc = x0 + (float)(j & 1);
-        // bounds are tested on the float position, before any conversion
-        const bool inb = yc >= 0.0f && yc <= (float)(H - 1) && xc >= 0.0f &&
-                         xc <= (float)(W - 1);
-        s_idx[e][j] = inb ? (int)yc * W + (int)xc : 0;
-        s_w[e][j] = inb ? wgt[j] * m : 0.0f;
-      }
+      bilinear_corners(offsets, mask, p, k, H, W, radius, s_idx[warp][lane],
+                       s_w[warp][lane]);
     }
   }
-  __syncthreads();
+  __syncwarp();
 
-  // phase 2: gather-and-blend, channel fastest across the threads
+  // phase 2: gather-and-blend, the channel pack fastest across the lanes
   using P = Pack<T, V>;
   using PO = Pack<O, V>;
   const int cv = C / V;
-  const P* __restrict__ xv = reinterpret_cast<const P*>(x);
-  PO* __restrict__ ov = reinterpret_cast<PO*>(out) + (size_t)p0 * KK * cv;
-  const int total = nent * cv;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int e = i / cv;
-    const int c = i - e * cv;
+  const int q0 = blockIdx.y * slice_packs;
+  const int qn = min(slice_packs, cv - q0);
+  const P* __restrict__ xv = reinterpret_cast<const P*>(x) + q0;
+  PO* __restrict__ ov = reinterpret_cast<PO*>(out) + (size_t)e0 * cv + q0;
+  const int total = n_here * qn;
+#pragma unroll 2
+  for (int i = lane; i < total; i += 32) {
+    const int e = i / qn;
+    const int c = i - e * qn;
+    const int* idx = s_idx[warp][e];
+    const float* wt = s_w[warp][e];
     float acc[V];
     if constexpr (MODE == kOnehot) {
       // g_row = wx0 * x[row, c0] + wx1 * x[row, c0 + 1], then the vertical
@@ -183,16 +190,17 @@ dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
         for (int t = 0; t < V; ++t) g[row][t] = 0.0f;
 #pragma unroll
         for (int col = 0; col < 2; ++col) {
-          const int idx = s_idx[e][2 * row + col];
-          if (idx < 0) continue;
-          const float wx = s_w[e][col];
-          const P v = xv[(size_t)idx * cv + c];
+          const int id = idx[2 * row + col];
+          if (id < 0) continue;
+          const float wx = wt[col];
+          const P v = xv[(size_t)id * cv + c];   // one 16-byte load
+          float f[V];
+          pack_to_float<true>(v, f);
 #pragma unroll
-          for (int t = 0; t < V; ++t)
-            g[row][t] += wx * round_bf16(to_float(v.v[t]));
+          for (int t = 0; t < V; ++t) g[row][t] += wx * f[t];
         }
       }
-      const float wy0 = s_w[e][2], wy1 = s_w[e][3], m = s_m[e];
+      const float wy0 = wt[2], wy1 = wt[3], m = s_m[warp][e];
 #pragma unroll
       for (int t = 0; t < V; ++t) acc[t] = (g[0][t] * wy0 + g[1][t] * wy1) * m;
     } else {
@@ -200,19 +208,18 @@ dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
       for (int t = 0; t < V; ++t) acc[t] = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float wj = s_w[e][j];
-        const P v = xv[(size_t)s_idx[e][j] * cv + c];
+        const float wj = wt[j];
+        const P v = xv[(size_t)idx[j] * cv + c];   // one 16-byte load
+        float f[V];
+        pack_to_float<MODE == kTap>(v, f);
 #pragma unroll
-        for (int t = 0; t < V; ++t) {
-          const float f = to_float(v.v[t]);
-          acc[t] += wj * (MODE == kTap ? round_bf16(f) : f);
-        }
+        for (int t = 0; t < V; ++t) acc[t] += wj * f[t];
       }
     }
     PO o;
 #pragma unroll
     for (int t = 0; t < V; ++t) from_float(acc[t], &o.v[t]);
-    ov[i] = o;
+    store(ov + (size_t)e * cv + c, o);
   }
 }
 
@@ -221,20 +228,28 @@ bool aligned(const void* p, size_t bytes) {
 }
 
 template <typename T, typename O, int V, int MODE>
-void launch(const void* x, const float* offsets, const float* mask, void* out,
-            int H, int W, int C, int radius, cudaStream_t stream) {
-  const int blocks = (H * W + TILE_PIX - 1) / TILE_PIX;
-  dcn_sample_kernel<T, O, V, MODE><<<blocks, THREADS, 0, stream>>>(
+int launch(const void* x, const float* offsets, const float* mask, void* out,
+           int H, int W, int C, int radius, int slice, cudaStream_t stream) {
+  // a slice narrower than C must hold whole packs
+  if (slice < C && slice % V != 0) return (int)cudaErrorInvalidValue;
+  const int cv = C / V;
+  const int slice_packs = slice < C ? slice / V : cv;
+  const dim3 grid((H * W * KK + TILE_ENT - 1) / TILE_ENT,
+                  (cv + slice_packs - 1) / slice_packs);
+  dcn_sample_kernel<T, O, V, MODE><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), offsets, mask, static_cast<O*>(out), H, W, C,
-      radius);
+      radius, slice_packs);
+  return (int)cudaGetLastError();
 }
 
 // Picks 16-byte input packs where C and the pointers allow it.  The output
 // is in x's dtype, except for kOnehot, whose output is always bfloat16.
 template <int MODE>
 int dispatch(const void* x, const void* offsets, const void* mask, void* out,
-             int H, int W, int C, int radius, int dtype, void* stream) {
-  if (H <= 0 || W <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+             int H, int W, int C, int radius, int dtype, int slice,
+             void* stream) {
+  if (H <= 0 || W <= 0 || C <= 0 || slice <= 0)
+    return (int)cudaErrorInvalidValue;
   if (MODE != kPlain && radius < 0) return (int)cudaErrorInvalidValue;
   const float* off = static_cast<const float*>(offsets);
   const float* msk = static_cast<const float*>(mask);
@@ -242,44 +257,48 @@ int dispatch(const void* x, const void* offsets, const void* mask, void* out,
   using BF = __nv_bfloat16;
   if (dtype == 0) {
     using O = typename std::conditional<MODE == kOnehot, BF, float>::type;
-    if (C % 4 == 0 && aligned(x, 16) && aligned(out, 4 * sizeof(O))) {
-      launch<float, O, 4, MODE>(x, off, msk, out, H, W, C, radius, s);
-    } else {
-      launch<float, O, 1, MODE>(x, off, msk, out, H, W, C, radius, s);
-    }
-  } else if (dtype == 1) {
-    if (C % 8 == 0 && aligned(x, 16) && aligned(out, 16)) {
-      launch<BF, BF, 8, MODE>(x, off, msk, out, H, W, C, radius, s);
-    } else {
-      launch<BF, BF, 1, MODE>(x, off, msk, out, H, W, C, radius, s);
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (C % 4 == 0 && aligned(x, 16) && aligned(out, 4 * sizeof(O)))
+      return launch<float, O, 4, MODE>(x, off, msk, out, H, W, C, radius,
+                                       slice, s);
+    return launch<float, O, 1, MODE>(x, off, msk, out, H, W, C, radius, slice,
+                                     s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    if (C % 8 == 0 && aligned(x, 16) && aligned(out, 16))
+      return launch<BF, BF, 8, MODE>(x, off, msk, out, H, W, C, radius, slice,
+                                     s);
+    return launch<BF, BF, 1, MODE>(x, off, msk, out, H, W, C, radius, slice,
+                                   s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of x).  Each returns the cudaError_t of
-// the launch (0 on success); the kernel runs on `stream` and does not
-// synchronise.  dcn_sample_tap and dcn_sample_onehot need radius >= 0.
+// dtype: 0 = float32, 1 = bfloat16 (of x).  slice: channels per block along
+// grid.y (ops/cuda_dcn.py::plan_sample; below C it must be a multiple of the
+// 8 channels of a bf16 pack).  Each returns the cudaError_t of the launch (0 on success); the kernel runs on
+// `stream` and does not synchronise.  dcn_sample_tap and dcn_sample_onehot
+// need radius >= 0.
 extern "C" int dcn_sample(const void* x, const void* offsets, const void* mask,
                           void* out, int H, int W, int C, int radius, int dtype,
-                          void* stream) {
-  return dispatch<kPlain>(x, offsets, mask, out, H, W, C, radius, dtype,
+                          int slice, void* stream) {
+  return dispatch<kPlain>(x, offsets, mask, out, H, W, C, radius, dtype, slice,
                           stream);
 }
 
 extern "C" int dcn_sample_tap(const void* x, const void* offsets,
                               const void* mask, void* out, int H, int W, int C,
-                              int radius, int dtype, void* stream) {
-  return dispatch<kTap>(x, offsets, mask, out, H, W, C, radius, dtype, stream);
+                              int radius, int dtype, int slice,
+                              void* stream) {
+  return dispatch<kTap>(x, offsets, mask, out, H, W, C, radius, dtype, slice,
+                        stream);
 }
 
 extern "C" int dcn_sample_onehot(const void* x, const void* offsets,
                                  const void* mask, void* out, int H, int W,
-                                 int C, int radius, int dtype, void* stream) {
+                                 int C, int radius, int dtype, int slice,
+                                 void* stream) {
   return dispatch<kOnehot>(x, offsets, mask, out, H, W, C, radius, dtype,
-                           stream);
+                           slice, stream);
 }

@@ -44,17 +44,29 @@ Which ``dcn_impl`` computes which function (``models/dcn.py`` dispatches):
 On a CUDA tensor every wrapper launches its kernel (built on first use, see
 ``csrc/build.py``) or raises; on a CPU tensor it computes the ``*_reference``
 plain version of the same function.  Nothing falls back from the card to a
-plain version.
+plain version.  Each launch follows a plan computed here from the layer's
+shape and the card's SM count: ``plan_sample`` sizes the sampling kernels'
+(entry tile, channel slice) grid, ``plan_fused`` picks T3's block tile and
+its split of the reduction, whose float32 workspace the wrapper allocates.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import threading
+from typing import NamedTuple
 
 import torch
 
 KK = 9                     # taps of the 3x3 kernel
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SAMPLE_TILE = 256          # (pixel, tap) entries per block, dcn_sample.cu
+SAMPLE_PER_SM = 4          # blocks per SM plan_sample aims at
+FUSED_BK = 32              # reduction chunk of dcn_fused.cu
+FUSED_BM = {64: 64, 128: 64, 256: 32}   # dcn_fused.cu: BN -> BM of a block
+FUSED_PER_SM = 1           # blocks per SM plan_fused aims at
 
 # Kernel launches made through each wrapper (see the module docstring).
 LAUNCHES = 0
@@ -65,13 +77,75 @@ LAUNCHES_FUSED = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {                       # library -> entry -> argtypes
-    "dcn_sample": {name: [_P] * 4 + [_I] * 5 + [_P]
+    "dcn_sample": {name: [_P] * 4 + [_I] * 6 + [_P]
                    for name in ("dcn_sample", "dcn_sample_tap",
                                 "dcn_sample_onehot")},
-    "dcn_fused": {"dcn_fused": [_P] * 6 + [_I] * 6 + [_P]},
+    "dcn_fused": {"dcn_fused": [_P] * 7 + [_I] * 9 + [_P]},
 }
 _libs = {}
 _lib_lock = threading.Lock()
+
+
+class SamplePlan(NamedTuple):
+    """Grid of dcn_sample.cu: ``tiles`` blocks of ``SAMPLE_TILE`` entries
+    by ``slices`` channel slices of ``slice_c`` channels."""
+    tiles: int
+    slices: int
+    slice_c: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.slices
+
+
+def plan_sample(h: int, w: int, c: int, sms: int = SMS) -> SamplePlan:
+    """Channel slices for ``SAMPLE_PER_SM`` blocks per SM where the entry
+    tiles alone give fewer.  A slice narrower than C is a multiple of 8
+    channels (one bf16 pack, two float32 packs) and at least 16."""
+    tiles = math.ceil(h * w * KK / SAMPLE_TILE)
+    need = math.ceil(SAMPLE_PER_SM * sms / tiles)
+    slice_c = c if need <= 1 else max(16, c // need // 8 * 8)
+    slice_c = min(slice_c, c)
+    return SamplePlan(tiles, math.ceil(c / slice_c), slice_c)
+
+
+class FusedPlan(NamedTuple):
+    """Launch of dcn_fused.cu: ``bm`` x ``bn`` block tiles, the reduction's
+    ``chunks`` of ``FUSED_BK`` in ``splits`` runs of ``chunks_per_split``,
+    and a float32 workspace of ``workspace`` elements (0 for one split)."""
+    bm: int
+    bn: int
+    tiles: int
+    chunks: int
+    splits: int
+    chunks_per_split: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+
+def plan_fused(h: int, w: int, c: int, cout: int,
+               sms: int = SMS) -> FusedPlan:
+    """One column tile holds up to 256 output channels (BN = 64, 128 or 256
+    by Cout); the reduction splits on chunk boundaries, in equal runs but the
+    last, until the layer launches ``FUSED_PER_SM`` blocks per SM (while it
+    has chunks to split)."""
+    bn = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    bm = FUSED_BM[bn]
+    tiles = math.ceil(h * w / bm) * math.ceil(cout / bn)
+    chunks = math.ceil(KK * c / FUSED_BK)
+    need = math.ceil(FUSED_PER_SM * sms / tiles)
+    per_split = chunks if need <= 1 else max(1, chunks // need)
+    splits = math.ceil(chunks / per_split)
+    workspace = splits * h * w * cout if splits > 1 else 0
+    return FusedPlan(bm, bn, tiles, chunks, splits, per_split, workspace)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _entry(library: str, name: str):
@@ -158,10 +232,11 @@ def _launch(entry: str, out: torch.Tensor, *args) -> torch.Tensor:
 def _sample_on_card(entry: str, x, offsets, mask, radius: int,
                     out_dtype: torch.dtype) -> torch.Tensor:
     h, w, c = x.shape
+    plan = plan_sample(h, w, c, _sm_count(x.device.index))
     out = torch.empty((h * w, KK * c), dtype=out_dtype, device=x.device)
     return _launch(entry, out, x.data_ptr(), offsets.data_ptr(),
                    mask.data_ptr(), out.data_ptr(), h, w, c, int(radius),
-                   _DTYPES[x.dtype])
+                   _DTYPES[x.dtype], plan.slice_c)
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -341,8 +416,9 @@ def deform_conv_fused(x: torch.Tensor, offsets: torch.Tensor,
                       mask: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, radius: int) -> torch.Tensor:
     """T3 (``deform_conv_pallas``, pallas_dcn.py:270): sampling, the weight
-    product and the bias in one kernel (``dcn_fused``); ``[H, W, Cout]`` in
-    x's dtype."""
+    product on the tensor cores in 3xTF32 and the bias (``dcn_fused``, plus
+    its split-K reduction where ``plan_fused`` splits); ``[H, W, Cout]`` in
+    x's dtype.  Counts one launch per call."""
     global LAUNCHES_FUSED
     _check_inputs(x, offsets, mask)
     _check_weight(x, weight, bias)
@@ -352,10 +428,21 @@ def deform_conv_fused(x: torch.Tensor, offsets: torch.Tensor,
                                            radius)
     h, w, c = x.shape
     cout = weight.shape[1]
+    plan = plan_fused(h, w, c, cout, _sm_count(x.device.index))
+    if h * w * cout * plan.splits >= 2 ** 31:
+        raise ValueError("deform_conv_fused: output too large for the "
+                         "kernel's indexing")
     out = torch.empty((h, w, cout), dtype=x.dtype, device=x.device)
-    _launch("dcn_fused", out, x.data_ptr(), offsets.data_ptr(),
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+          if plan.workspace else None)
+    # the kernel samples a bf16 x, as deform_conv_pallas casts x before its
+    # kernel (pallas_dcn.py:297)
+    xb = x.to(torch.bfloat16)
+    _launch("dcn_fused", out, xb.data_ptr(), offsets.data_ptr(),
             mask.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), h, w, c, cout, int(radius), _DTYPES[x.dtype])
+            out.data_ptr(), None if ws is None else ws.data_ptr(), h, w, c,
+            cout, int(radius), _DTYPES[x.dtype], plan.bn, plan.splits,
+            plan.chunks_per_split)
     LAUNCHES_FUSED += 1
     return out
 

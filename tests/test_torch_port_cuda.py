@@ -60,7 +60,8 @@ def test_dcn_sample_rejects_non_contiguous(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
-                                   (34, 60, 256)])
+                                   (34, 60, 256), (17, 30, 512),
+                                   (136, 240, 64)])
 def test_dcn_sample_tap_matches_plain(cuda_device, h, w, c, dtype):
     """T2's kernel: within 1e-5 * max|x| in float32, one bf16 step of
     max|x| (2**-7 * max|x|) in bf16."""
@@ -73,6 +74,19 @@ def test_dcn_sample_tap_matches_plain(cuda_device, h, w, c, dtype):
     ref = cuda_dcn.deform_sample_tap_reference(x, offs, mask, 4)
     bound = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * x.abs().max()
     assert (got.float() - ref.float()).abs().max() <= bound
+
+
+@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
+                                   (34, 60, 256), (17, 30, 512),
+                                   (136, 240, 64)])
+def test_dcn_sample_tap_is_plain_sampling_of_rounded_x(cuda_device, h, w, c):
+    """T2 on x equals T1 on x rounded to bf16, bit for bit in float32: the
+    two entries share one template and each element's arithmetic."""
+    x, offs, mask = _inputs(h, w, c, 11, cuda_device, torch.float32)
+    tap = cuda_dcn.deform_sample_tap(x, offs, mask, 4)
+    plain = cuda_dcn.deform_sample(x.bfloat16().float(), offs, mask, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(tap, plain)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -90,18 +104,27 @@ def test_dcn_sample_onehot_matches_plain(cuda_device, h, w, c, dtype):
     assert (got.float() - ref).abs().max() <= 2.0 ** -7 * ref.abs().max()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,c,cout", [(13, 19, 16, 6), (11, 21, 40, 70),
-                                        (9, 7, 3, 64), (34, 60, 256, 128)])
-def test_dcn_fused_matches_plain(cuda_device, h, w, c, cout, dtype):
-    """T3's kernel, ragged pixel and channel tiles included: within 1e-4 *
-    max|out| in float32 (sums of 9C products in another order), one bf16
-    step of max|out| in bf16."""
-    x, offs, mask = _inputs(h, w, c, 9, cuda_device, dtype)
-    rng = np.random.RandomState(10)
+def _weights(c, cout, seed, dev):
+    rng = np.random.RandomState(seed)
     wt = torch.from_numpy((rng.randn(9 * c, cout) / np.sqrt(9 * c)).astype(
-        np.float32)).to(cuda_device)
-    b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda_device)
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(dev)
+    return wt, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c,cout", [
+    (13, 19, 16, 6), (11, 21, 40, 70), (9, 7, 3, 64), (34, 60, 256, 128),
+    # split-K: the smallest DLA-34 layer, a few pixels with a large K, and
+    # C = 3 (K = 27, one ragged chunk) with ragged and wide Cout
+    (17, 30, 512, 256), (5, 7, 512, 256), (9, 7, 3, 6), (9, 7, 3, 70),
+    (9, 7, 3, 256)])
+def test_dcn_fused_matches_plain(cuda_device, h, w, c, cout, dtype):
+    """T3's kernel, ragged pixel and channel tiles and split reductions
+    included: within 1e-4 * max|out| in float32 (3xTF32 products summed in
+    another order), one bf16 step of max|out| in bf16."""
+    x, offs, mask = _inputs(h, w, c, 9, cuda_device, dtype)
+    wt, b = _weights(c, cout, 10, cuda_device)
     before = cuda_dcn.LAUNCHES_FUSED
     got = cuda_dcn.deform_conv_fused(x, offs, mask, wt, b, 4)
     torch.cuda.synchronize()
@@ -110,6 +133,18 @@ def test_dcn_fused_matches_plain(cuda_device, h, w, c, cout, dtype):
     ref = cuda_dcn.deform_conv_fused_reference(x, offs, mask, wt, b, 4).float()
     tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * ref.abs().max()
     assert (got.float() - ref).abs().max() <= tol
+
+
+def test_dcn_fused_is_deterministic(cuda_device):
+    """The split-K reduction sums in a fixed order: two calls on the same
+    inputs give the same bits (17x30x512 -> 256 splits its reduction)."""
+    x, offs, mask = _inputs(17, 30, 512, 13, cuda_device, torch.float32)
+    wt, b = _weights(512, 256, 14, cuda_device)
+    assert cuda_dcn.plan_fused(17, 30, 512, 256).splits > 1
+    first = cuda_dcn.deform_conv_fused(x, offs, mask, wt, b, 4)
+    second = cuda_dcn.deform_conv_fused(x, offs, mask, wt, b, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_clamped_kernels_reject_negative_radius(cuda_device):
