@@ -6,20 +6,28 @@
 Builds the port's CUDA kernels from ``deft_tpu_torch/csrc`` into
 ``build/kernels/`` (one nvcc per source, all at once), holds each of the four
 kernels against its plain PyTorch version at the 7 DLA-34 DCNv2 layer shapes
-of a 544x960 frame, in two offset regimes, and times kernel, plain version
-and a library yardstick beside a bound.  Then it drives both main paths at
-full width (DLA-34 with DCNv2 neck, 544x960 input, K=100, max_object=100,
-50-slot ring) on 30 synthetic 1080x1920 frames with seeded random weights:
+of a 544x960 frame, in two offset regimes, and ``dcn_sample`` also at the 7
+shapes of a 448x800 nuScenes camera, and times kernel, plain version and a
+library yardstick beside a bound.  Then it drives the main paths at full
+width (DLA-34 with DCNv2 neck, K=100, max_object=100, 50-slot rings) with
+seeded random weights:
 
-* slice 1, MOT17 tracking through ``Detector.run`` (``dcn_impl="hybrid"``,
-  every DCNv2 layer through ``dcn_sample``);
+* slice 1, MOT17 tracking through ``Detector.run`` (544x960,
+  ``dcn_impl="hybrid"``, every DCNv2 layer through ``dcn_sample``) on 30
+  synthetic 1080x1920 frames;
 * slice 2, the ``PipelinedRunner`` of ``test.py`` (chunk 1, depth 3) and of
   ``bench.py`` (chunk 4, ``frame_chunk_batched``) with
   ``dcn_impl="pallas"`` (every DCNv2 layer through ``dcn_sample_tap``,
-  similarity against the 12 freshest ring slots);
+  similarity against the 12 freshest ring slots) on the same frames;
+* slice 4, nuScenes monocular 3-D tracking through ``track.py::
+  track_nuscenes`` -> ``Detector.run_multi`` (``nuscenes_config()``: 448x800,
+  3-D heads, 704-wide AFE, seven per-class trackers with the LSTM motion
+  model) on 10 samples of a synthetic six-camera rig of 900x1600 frames,
+  each sample's cameras as one batch;
 
 and shows from the launch counters, set to 0 just before each path and read
-just after, that every DCNv2 layer of every frame went through its kernel.
+just after, that every DCNv2 layer of every frame went through its kernel
+(and, on nuScenes, that the LSTM stepped tracks).
 The kernel phase also checks that ``dcn_sample_tap`` on x equals
 ``dcn_sample`` on x rounded to bf16 bit for bit, that ``dcn_fused`` (split-K,
 no atomics) gives the same bits on two calls, and times ``dcn_sample_tap``
@@ -49,13 +57,16 @@ import numpy as np
 import torch
 
 import deft_tpu_torch
-from deft_tpu_torch.config import mot_config
+from deft_tpu_torch.config import mot_config, nuscenes_config
 from deft_tpu_torch.csrc.build import build_all
+from deft_tpu_torch.data.synthetic_nuscenes import make_scene
 from deft_tpu_torch.inference.detector import Detector
 from deft_tpu_torch.inference.runner import PipelinedRunner
 from deft_tpu_torch.models.dcn import DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
+from deft_tpu_torch.track import nuscenes_submission, track_nuscenes
+from deft_tpu_torch.tracking import matching, motion_lstm
 from deft_tpu_torch.tracking.basetrack import IdAllocator
 
 SEED = 0
@@ -75,6 +86,18 @@ LAYERS = [
     (34, 60, 256, 64, 1),
     (17, 30, 512, 256, 1),
 ]
+# the same layers of one 448x800 nuScenes camera (6 per sample)
+NUSCENES_LAYERS = [
+    (112, 200, 64, 64, 5),
+    (56, 100, 128, 64, 4),
+    (56, 100, 128, 128, 2),
+    (28, 50, 256, 128, 2),
+    (28, 50, 256, 256, 1),
+    (28, 50, 256, 64, 1),
+    (14, 25, 512, 256, 1),
+]
+NUSCENES_SAMPLES = 10
+CAMERAS = 6
 # kernel -> (source, TPU kernel it replaces, launch counter in cuda_dcn)
 KERNELS = {
     "dcn_sample": ("deft_tpu_torch/csrc/dcn_sample.cu",
@@ -285,17 +308,21 @@ def bitwise_checks(x, offsets, mask, weight, bias, shape):
 
 
 def kernel_phase():
-    """Every kernel against its plain version at the 7 layer shapes, with
-    'trained' offsets and with offsets past the clamp, plus bf16 inputs at
-    the largest shape; the bitwise checks at every float32 case; times and
-    bounds per call, and T2 with the GEMM that reads its patches."""
+    """Every kernel against its plain version at the 7 MOT layer shapes,
+    with 'trained' offsets and with offsets past the clamp, plus bf16 inputs
+    at the largest shape; ``dcn_sample`` (the kernel of the nuScenes path)
+    also at the 7 nuScenes shapes in both regimes; the bitwise checks at
+    every float32 MOT case; times and bounds per call, and T2 with the GEMM
+    that reads its patches."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
-    cases = [(shape, "trained", torch.float32) for shape in LAYERS]
-    cases += [(shape, "uniform6", torch.float32) for shape in LAYERS]
-    cases += [(LAYERS[0], "trained", torch.bfloat16)]
-    for (h, w, c, cout, count), regime, dtype in cases:
+    cases = [(shape, "trained", torch.float32, "mot") for shape in LAYERS]
+    cases += [(shape, "uniform6", torch.float32, "mot") for shape in LAYERS]
+    cases += [(LAYERS[0], "trained", torch.bfloat16, "mot")]
+    cases += [(shape, regime, torch.float32, "nuscenes")
+              for regime in ("trained", "uniform6") for shape in NUSCENES_LAYERS]
+    for (h, w, c, cout, count), regime, dtype, model in cases:
         x = torch.from_numpy(rng.normal(0, 1, (h, w, c)).astype(np.float32)
                              ).to(dev, dtype)
         offsets = torch.from_numpy(make_offsets(rng, h, w, regime)).to(dev)
@@ -307,11 +334,13 @@ def kernel_phase():
         bias = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)
                                 ).to(dev)
         f32 = dtype == torch.float32
-        if f32:
+        if f32 and model == "mot":
             bitwise_checks(x, offsets, mask, weight, bias, (h, w, c, cout))
         for name in KERNELS:
             if dtype == torch.bfloat16 and name not in ("dcn_sample",
                                                         "dcn_fused"):
+                continue
+            if model == "nuscenes" and name != "dcn_sample":
                 continue
             kernel, plain, library, tol_rel, (t_bytes, t_ffma, t_ops) = (
                 kernel_calls(name, x, offsets, mask, weight, bias))
@@ -324,7 +353,8 @@ def kernel_phase():
                 raise AssertionError(
                     f"{name} disagrees with its plain version at "
                     f"{(h, w, c, cout)} {regime} {dtype}: {err} > {tol}")
-            row = {"phase": "kernel", "kernel": name, "H": h, "W": w, "C": c,
+            row = {"phase": "kernel", "kernel": name, "model": model,
+                   "H": h, "W": w, "C": c,
                    "Cout": cout, "count": count, "regime": regime,
                    "dtype": str(dtype).replace("torch.", ""),
                    "radius": RADIUS,
@@ -337,11 +367,12 @@ def kernel_phase():
                    "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
                    "bound_operations_ffma_ms": t_ffma,
                    "max_abs_err": err, "tolerance": tol}
-            if f32 and name == "dcn_sample_tap":
+            if f32 and model == "mot" and name == "dcn_sample_tap":
                 row["with_gemm_ms"] = graph_times(
                     lambda: cuda_dcn.deform_conv_tap(x, offsets, mask, weight,
                                                      bias, RADIUS))
-            if f32 and name in ("dcn_sample_tap", "dcn_fused"):
+            if f32 and model == "mot" and name in ("dcn_sample_tap",
+                                                   "dcn_fused"):
                 row["bitwise_check"] = ("equals dcn_sample on bf16-rounded x"
                                         if name == "dcn_sample_tap" else
                                         "same bits on two calls")
@@ -413,11 +444,13 @@ def randomize_offsets(model, image, gen):
 @torch.no_grad()
 def raise_heatmap(model, image, top_fraction=0.01):
     """Random weights give a flat heatmap far below track_thresh: rescale
-    the heatmap head so ~1% of this image's pixels score above 0.5."""
+    the heatmap head so ~1% of this image's pixels score above 0.5 in every
+    class."""
     outputs, _ = model(image)
-    z = outputs["hm"].flatten()
+    z = outputs["hm"]
     gain = 2.0 / z.std().item()
-    thr = torch.quantile(z, 1.0 - top_fraction).item()
+    thr = torch.quantile(z.reshape(-1, z.shape[-1]), 1.0 - top_fraction,
+                         dim=0)
     out = model.hm[-1]
     out.weight.mul_(gain)
     out.bias.copy_((out.bias - thr) * gain)
@@ -744,21 +777,272 @@ def profile_phase(det, frames, ms_per_frame):
     emit(row)
 
 
-def kernels_line(rows, kernel_launches, slice_launches, runner_launches):
-    """Per kernel: per-frame sums over the 16 layers (float32, 'trained'
-    offsets), the worst error of any case, and the launches of the path
-    that runs it (the kernel phase's for the two no path reaches)."""
+def timed(fn, sync, times):
+    """``fn`` with each call's host time, ended by ``sync``, appended to
+    ``times`` (ms)."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+@torch.no_grad()
+def plausible_3d_heads(model):
+    """Random 3-D heads give degenerate boxes (sizes and depths near 0):
+    set the dim head's bias to a car's (h, w, l) = (1.6, 1.9, 4.5) m and the
+    depth head's to ~20 m, as ``raise_heatmap`` sets the heatmap's."""
+    model.dim[-1].bias.copy_(torch.tensor([1.6, 1.9, 4.5]))
+    model.dep[-1].bias.fill_(-math.log(20.0))
+
+
+def snapshot(online):
+    return [(t.track_id, t.classe, np.asarray(t.tlbr)) for t in online]
+
+
+@torch.no_grad()
+def nuscenes_phase(cfg=None, device="cuda", layers=NUSCENES_LAYERS,
+                   samples=NUSCENES_SAMPLES, size=(900, 1600), min_tracks=20):
+    """Slice 4's main path: ``nuscenes_config()`` at full width with seeded
+    random weights through ``track_nuscenes`` -> ``Detector.run_multi`` on
+    ``samples`` samples of the six-camera rig.  Every DCNv2 layer of every
+    camera must launch ``dcn_sample`` (16 x 6 per sample) and the LSTM must
+    step tracks; the tracks must carry global boxes and the submission be
+    well formed.  Reports ms per sample (median over samples 2 on), the
+    stage split (the LSTM inside the track stage), peak memory, the
+    ``torch.profiler`` busy share and how many cameras' tracks one
+    ``run`` per camera reproduces.  ``cfg``, ``device``, ``layers``,
+    ``size`` and ``min_tracks`` exist for a rehearsal on the CPU."""
+    cfg = cfg or nuscenes_config()
+    scene = make_scene(n_samples=samples, cameras=CAMERAS, height=size[0],
+                       width=size[1], seed=SEED + 3)
+    gen = torch.Generator().manual_seed(SEED)
+    det = Detector(cfg, device=device)
+    on_card = det.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else lambda: None
+    model = det.model
+    n_dcn = sum(isinstance(m, DCNv2) for m in model.modules())
+    info0, frame0 = scene[0]
+    first, _ = det.pre_process(frame0, {"calib": info0["calib"]})
+    offset_q, shapes = randomize_offsets(model, first, gen)
+    expected = Counter({l[:4]: l[4] for l in layers})
+    if shapes != expected or n_dcn != sum(expected.values()):
+        raise AssertionError(f"nuScenes DCN layer shapes {dict(shapes)} != "
+                             f"{dict(expected)}")
+    raise_heatmap(model, first)
+    plausible_3d_heads(model)
+    infos = {info["id"]: info for info, _ in scene}
+
+    run_ms, lstm_ms = [], []
+    det.run_multi = timed(det.run_multi, sync, run_ms)
+    det.motion.predict_batch = timed(det.motion.predict_batch, sync, lstm_ms)
+    sync()
+    resident = None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    reset_launches()
+    motion_lstm.BATCHES = motion_lstm.ROWS = 0
+    results = track_nuscenes(det, [(1, scene)])
+    sync()
+    count = launches()
+    lstm_steps = (motion_lstm.BATCHES, motion_lstm.ROWS)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dcn_sample"] = n_dcn * CAMERAS * samples if on_card else 0
+    if count != expected:
+        raise AssertionError(f"nuScenes kernel launches {count}, expected "
+                             f"{expected}")
+    if lstm_steps[0] < 1 or lstm_steps[1] < 1:
+        raise AssertionError(f"no LSTM step with rows: {lstm_steps}")
+    items = [item for v in results.values() for item in v]
+    if len(results) != len(scene) or len(items) < min_tracks * samples:
+        raise AssertionError(f"{len(items)} tracks over {len(results)} "
+                             f"frames")
+    for item in items:
+        box = item["translation"] + item["size"] + item["rotation"]
+        if not np.isfinite(box).all() or not np.isfinite(item["bbox"]).all():
+            raise AssertionError(f"non-finite track box {item}")
+    sub = nuscenes_submission(results, infos)
+    if sorted(sub["results"]) != sorted({i["sample_token"]
+                                         for i in infos.values()}):
+        raise AssertionError("submission samples differ from the scene's")
+    for token, sub_items in sub["results"].items():
+        if not 0 < len(sub_items) <= 500:
+            raise AssertionError(f"{len(sub_items)} items in {token}")
+        for it in sub_items:
+            if (len(it["translation"]) != 3 or len(it["rotation"]) != 4
+                    or len(it["velocity"]) != 2
+                    or it["tracking_name"] != it["detection_name"]):
+                raise AssertionError(f"malformed submission item {it}")
+    for rec in det.tracker.values():
+        if not torch.isfinite(rec.recorder.embeds).all():
+            raise AssertionError("non-finite embeddings in a ring")
+    lstm_during_run = sum(lstm_ms)
+
+    # where a steady sample's time goes, each stage ended by a synchronize;
+    # inside the track stage: the LSTM steps, the trackers' window
+    # similarity (card, copy out, host decay) and the 3-D IoU (host)
+    stages = {"pre_process": [], "detect": [], "post_process": [],
+              "track": [], "track_lstm": [], "track_similarity": [],
+              "track_iou3d": [], "iou3d_pairs": []}
+    sim_ms, iou_ms, pairs = [], [], []
+    iou_ddd_distance = matching.iou_ddd_distance
+
+    def counted_iou3d(a, b):
+        pairs.append(len(a) * len(b))
+        return iou_ddd_distance(a, b)
+
+    matching.iou_ddd_distance = timed(counted_iou3d, lambda: None, iou_ms)
+    for tracker in det.tracker.values():
+        tracker.recorder.update = timed(tracker.recorder.update, sync, sim_ms)
+    for sample in [scene[i: i + CAMERAS]
+                   for i in range(CAMERAS, 4 * CAMERAS, CAMERAS)][:samples - 1]:
+        t = [time.perf_counter()]
+        prepared = [det.pre_process(f, {"calib": i["calib"]})
+                    for i, f in sample]
+        sync()
+        t.append(time.perf_counter())
+        dets, emb = det.process(torch.cat([p[0] for p in prepared]))
+        sync()
+        t.append(time.perf_counter())
+        results_b = [det.post_process({k: v[b: b + 1] for k, v in dets.items()},
+                                      prepared[b][1])
+                     for b in range(len(sample))]
+        t.append(time.perf_counter())
+        for times in (lstm_ms, sim_ms, iou_ms, pairs):
+            times.clear()
+        for b, (info, _) in enumerate(sample):
+            det._track(results_b[b], emb[b][: len(results_b[b])], info)
+        sync()
+        t.append(time.perf_counter())
+        for name, a, b in zip(stages, t[:-1], t[1:]):
+            stages[name].append((b - a) * 1e3)
+        for name, times in (("track_lstm", lstm_ms), ("iou3d_pairs", pairs),
+                            ("track_similarity", sim_ms),
+                            ("track_iou3d", iou_ms)):
+            stages[name].append(sum(times))
+    matching.iou_ddd_distance = iou_ddd_distance
+
+    # run_multi against one run per camera, same weights, first 3 samples
+    seq = Detector(cfg, model.state_dict(), device=device,
+                   motion_state_dict=det.motion.model.state_dict())
+    det.ids = IdAllocator()
+    det.reset_tracking()
+    same, box_diff, n_cams = 0, 0.0, 0
+    for i in range(0, 3 * CAMERAS, CAMERAS):
+        sample = scene[i: i + CAMERAS]
+        want = [snapshot(seq.run(f, {"calib": inf["calib"]}, inf))
+                for inf, f in sample]
+        got = det.run_multi([f for _, f in sample],
+                            [{"calib": inf["calib"]} for inf, _ in sample],
+                            [inf for inf, _ in sample], materialize=snapshot)
+        for g, w in zip(got, want):
+            n_cams += 1
+            if [x[:2] for x in g] == [x[:2] for x in w]:
+                same += 1
+                box_diff = max([box_diff] + [float(np.abs(a[2] - b[2]).max())
+                                             for a, b in zip(g, w)])
+    # where the two part: the batch-6 detect against six batch-1 ones
+    images = torch.cat([det.pre_process(f, {"calib": inf["calib"]})[0]
+                        for inf, f in scene[:CAMERAS]])
+    dets6, emb6 = det.process(images)
+    singles = [det.process(images[b: b + 1]) for b in range(CAMERAS)]
+    detect_diff = {
+        "scores": max(float(np.abs(dets6["scores"][b] - d["scores"][0]).max())
+                      for b, (d, _) in enumerate(singles)),
+        "embeddings": max(float((emb6[b] - e[0]).abs().max())
+                          for b, (_, e) in enumerate(singles)),
+        "cameras_same_top_k_order": sum(
+            np.array_equal(dets6["inds"][b], d["inds"][0])
+            for b, (d, _) in enumerate(singles))}
+
+    row = {"phase": "nuscenes", "device": str(det.device),
+           "config": f"nuscenes_config dla_34 {cfg.dla_node} dcn_impl="
+                     f"{cfg.dcn_impl} {cfg.input_h}x{cfg.input_w} K={cfg.K} "
+                     f"max_object={cfg.max_object} lstm={cfg.lstm} "
+                     f"embed_dim={det.embed_dim}",
+           "samples": samples, "cameras": CAMERAS,
+           "frame_size": list(frame0.shape[:2]),
+           "ms_per_sample_median": statistics.median(run_ms[1:samples]),
+           "ms_first_sample": run_ms[0],
+           "ms_per_sample_all": run_ms[:samples],
+           "lstm_ms_during_run": lstm_during_run,
+           "lstm_batches": lstm_steps[0], "lstm_rows": lstm_steps[1],
+           "tracks_per_sample_median": statistics.median(
+               [sum(len(results[i["id"]]) for i, _ in scene[j: j + CAMERAS])
+                for j in range(0, len(scene), CAMERAS)]),
+           "submission_items": sum(len(v) for v in sub["results"].values()),
+           "dcn_layers": n_dcn, "launches": count,
+           "peak_memory_bytes": peak, "resident_at_start_bytes": resident,
+           "offset_abs_q01_q50_q99": offset_q,
+           "stage_ms_median": {k: statistics.median(v)
+                               for k, v in stages.items()},
+           "run_multi_vs_run_cameras_same_ids": f"{same} of {n_cams}",
+           "run_multi_vs_run_max_box_diff_px": box_diff,
+           "batch6_vs_batch1_detect_max_abs_diff": detect_diff}
+    if on_card:
+        row.update(profile_samples(det, scene, row["ms_per_sample_median"]))
+    emit(row)
+    return count["dcn_sample"]
+
+
+def profile_samples(det, scene, ms_per_sample):
+    """``torch.profiler`` over 2 samples of ``run_multi``: device kernel
+    time per sample by name, and its share of the unprofiled ms/sample."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(0, n * CAMERAS, CAMERAS):
+            sample = scene[i: i + CAMERAS]
+            det.run_multi([f for _, f in sample],
+                          [{"calib": inf["calib"]} for inf, _ in sample],
+                          [inf for inf, _ in sample])
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        kernels.append((t / 1e3 / n, evt.count / n, evt.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    return {"profiled_samples": n, "device_ms_per_sample": device_ms,
+            "busy_share": device_ms / ms_per_sample,
+            "top_kernels_ms_per_sample": [
+                [round(t, 4), c, name[:90]] for t, c, name in kernels[:12]]}
+
+
+def per_frame_sums(rows):
+    """Per-frame sums over the 16 layers of one frame (float32, 'trained'
+    offsets)."""
+    per_frame = [r for r in rows if r["regime"] == "trained"
+                 and r["dtype"] == "float32"]
+    return {key: sum(r[key] * r["count"] for r in per_frame)
+            for key in ("kernel_ms", "plain_ms", "library_ms",
+                        "bound_bytes_ms", "bound_operations_ms",
+                        "bound_operations_ffma_ms")}
+
+
+def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
+                 nuscenes_launches):
+    """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame,
+    the worst error of any case, and the launches of the paths that run it
+    (the kernel phase's for the two no path reaches); ``dcn_sample`` adds
+    its sums over a 448x800 nuScenes camera."""
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        per_frame = [r for r in mine if r["regime"] == "trained"
-                     and r["dtype"] == "float32"]
-        total = {key: sum(r[key] * r["count"] for r in per_frame)
-                 for key in ("kernel_ms", "plain_ms", "library_ms",
-                             "bound_bytes_ms", "bound_operations_ms",
-                             "bound_operations_ffma_ms")}
-        path = {"dcn_sample": ("Detector.run, dcn_impl=hybrid",
-                               slice_launches),
+        total = per_frame_sums([r for r in mine if r["model"] == "mot"])
+        path = {"dcn_sample": (
+                    "Detector.run (MOT) and Detector.run_multi (nuScenes), "
+                    "dcn_impl=hybrid", slice_launches + nuscenes_launches),
                 "dcn_sample_tap": ("PipelinedRunner chunk 1, dcn_impl=pallas",
                                    runner_launches)}
         path_name, count = path.get(name, (
@@ -776,14 +1060,28 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches):
             "bound_by": ("bytes" if total["bound_bytes_ms"]
                          >= total["bound_operations_ms"] else "operations"),
             "library_ms": total["library_ms"]}
+        if name == "dcn_sample":
+            nus = per_frame_sums([r for r in mine if r["model"] == "nuscenes"])
+            entry["launches_by_path"] = {
+                "Detector.run, MOT, 30 frames": slice_launches,
+                f"Detector.run_multi, nuScenes, {NUSCENES_SAMPLES} samples "
+                f"x {CAMERAS} cameras": nuscenes_launches}
+            entry["nuscenes_per_camera"] = {
+                "ms": nus["kernel_ms"], "plain_ms": nus["plain_ms"],
+                "library_ms": nus["library_ms"],
+                "bound_ms": max(nus["bound_bytes_ms"],
+                                nus["bound_operations_ms"]),
+                "bound_by": ("bytes" if nus["bound_bytes_ms"]
+                             >= nus["bound_operations_ms"] else "operations")}
         if name == "dcn_fused":
             entry["product"] = "3xTF32 mma.sync.m16n8k8, split-K"
             entry["bound_ffma_ms"] = max(total["bound_bytes_ms"],
                                          total["bound_operations_ffma_ms"])
         if name == "dcn_sample_tap":
             entry["store"] = "streaming (st.global.cs)"
-            entry["with_gemm_ms"] = sum(r["with_gemm_ms"] * r["count"]
-                                        for r in per_frame)
+            entry["with_gemm_ms"] = sum(
+                r["with_gemm_ms"] * r["count"] for r in mine
+                if r["regime"] == "trained" and r["dtype"] == "float32")
         entries.append(entry)
     return {"kernels": entries}
 
@@ -816,10 +1114,13 @@ def main() -> int:
     runner_rows, runner = runner_phase(frames)
     runner_profile_phase(runner, frames,
                          runner_rows["test.py"]["ms_per_frame"])
+    del runner, frames
+    nuscenes_launches = nuscenes_phase()
 
     print(smi, flush=True)
     emit(kernels_line(rows, kernel_launches, slice_launches,
-                      runner_rows["test.py"]["launches"]["dcn_sample_tap"]))
+                      runner_rows["test.py"]["launches"]["dcn_sample_tap"],
+                      nuscenes_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -17,6 +17,13 @@ reference DEFT network's.  It is the inverse of
 
 Every JAX leaf must be used; a leaf left over raises, so a layout the port
 does not know cannot pass silently.
+
+``from_jax_motion_variables`` does the same for the LSTM motion model: flax's
+``OptimizedLSTMCell`` keeps one Dense per gate (``ii, if, ig, io`` on the
+input without a bias, ``hi, hf, hg, ho`` on the hidden state with one), which
+``torch.nn.LSTMCell`` stacks in the same i, f, g, o order into ``weight_ih``
+``[4H, F]`` and ``weight_hh`` ``[4H, H]``, its hidden-side bias the flax
+biases and its input-side bias zero.
 """
 
 from __future__ import annotations
@@ -198,3 +205,34 @@ def from_jax_variables(variables: dict, cfg: Config) -> Dict[str, torch.Tensor]:
         raise ValueError(f"JAX leaves with no place in the port: {left[:10]}"
                          f"{' ...' if len(left) > 10 else ''}")
     return inv.sd
+
+
+def from_jax_motion_variables(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``DecoderRNN`` variables (``{"params": ...}``, numpy leaves) ->
+    the port's ``DecoderRNN`` ``state_dict``."""
+    params = variables["params"]
+    cell = params["cell"]
+    gates = ("i", "f", "g", "o")
+    used = {("cell", f"i{g}", "kernel") for g in gates}
+    used |= {("cell", f"h{g}", k) for g in gates for k in ("kernel", "bias")}
+    used |= {(d, k) for d in ("out1", "out2") for k in ("kernel", "bias")}
+    left = sorted(set(_leaves(params)) - used)
+    if left:
+        raise ValueError(f"JAX motion leaves with no place in the port: {left}")
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    bias_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+    return OrderedDict([
+        ("lstm.weight_ih", t(np.concatenate(
+            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates]))),
+        ("lstm.weight_hh", t(np.concatenate(
+            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates]))),
+        ("lstm.bias_ih", t(np.zeros_like(bias_hh))),
+        ("lstm.bias_hh", t(bias_hh)),
+        ("out1.weight", t(np.asarray(params["out1"]["kernel"]).T)),
+        ("out1.bias", t(params["out1"]["bias"])),
+        ("out2.weight", t(np.asarray(params["out2"]["kernel"]).T)),
+        ("out2.bias", t(params["out2"]["bias"])),
+    ])

@@ -1,8 +1,10 @@
 """Dataset metadata, copied from ``deft_tpu/data/datasets/__init__.py``.
 
-Only what the configuration needs: ``DatasetInfo``, the per-dataset info
-table and ``get_dataset_info``.  The dataset classes and the data pipeline
-are not part of the port yet.
+What the configuration and the trackers need: ``DatasetInfo``, the
+per-dataset info table, ``get_dataset_info``, the nuScenes tracking classes
+and the nuScenes submission's class families
+(``deft_tpu/data/datasets/nuscenes.py:22-27``).  The dataset classes and the
+data pipeline are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -89,6 +91,19 @@ _INFOS = {
     "coco": COCO_INFO,
     "custom": CUSTOM_INFO,
 }
+
+NUSCENES_TRACKING_CLASSES = (
+    "car", "truck", "bus", "trailer", "pedestrian", "motorcycle", "bicycle",
+)
+# the nuScenes submission: classes left out of tracking, and the families
+# whose attribute is the argmax of their slice of the nuscenes_att head
+NUSCENES_TRACKING_IGNORED = ("construction_vehicle", "traffic_cone", "barrier")
+NUSCENES_VEHICLES = ("car", "truck", "bus", "trailer", "construction_vehicle")
+NUSCENES_CYCLES = ("motorcycle", "bicycle")
+NUSCENES_PEDESTRIANS = ("pedestrian",)
+NUSCENES_ID_TO_ATTRIBUTE = {v: k for k, v in
+                            NUSCENES_INFO.attribute_to_id.items()}
+
 
 def get_dataset_info(name: str) -> DatasetInfo:
     return _INFOS[name]

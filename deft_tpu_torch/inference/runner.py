@@ -74,6 +74,7 @@ class TrackView:
 
     __slots__ = ("track_id", "score", "is_activated", "tlwh", "frame_id",
                  "start_frame")
+    ddd_submission = None           # the runner tracks 2-D datasets only
 
     def __init__(self, t):
         self.track_id = t.track_id
@@ -129,6 +130,9 @@ class PipelinedRunner:
 
     def __init__(self, detector, depth: int = 3, chunk: int = 1):
         cfg = detector.cfg
+        if cfg.dataset == "nuscenes":
+            raise ValueError("nuScenes samples go through Detector.run_multi "
+                             "(track.py::track_nuscenes), as in test.py")
         for flag in ("public_det", "embed_parity", "yuv_upload",
                      "delta_upload"):
             if getattr(cfg, flag):

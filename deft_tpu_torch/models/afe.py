@@ -8,7 +8,8 @@ BatchNorm on embeddings, and the pairwise 1x1-conv stack
 package:
 
 * embeddings are border-padded bilinear samples of the ReLU'd selector maps
-  at the object centers, concatenated to E = 416 dims (MOT);
+  at the object centers, concatenated to E = 416 dims (MOT, KITTI) or 704
+  (nuScenes, ``selector_out_channels``);
 * the first affinity layer is split into its pre and next halves, so the
   N x N pair grid is materialized only after two [N, 512] products; the
   remaining layers are per-pair matmuls;
@@ -23,7 +24,7 @@ The training forward (``__call__`` of the JAX module) is not ported yet.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,9 +35,14 @@ from deft_tpu_torch.ops.sampling import grid_sample_points
 
 SELECTOR_INPUT_CHANNELS = (16, 32, 64, 128, 256, 512, 64, 128, 256, 512,
                            64, 64, 64)
-SELECTOR_OUT_2D = (32,) * 13     # MOT and KITTI (nuScenes: a later slice)
+SELECTOR_OUT_2D = (32,) * 13
+SELECTOR_OUT_NUSCENES = (48, 48, 64, 64, 64, 64, 64, 64, 64, 64, 32, 32, 32)
 FINAL_WIDTHS = (512, 256, 128, 64, 1)
 FALSE_CONSTANT = 1.0
+
+
+def selector_out_channels(dataset: str) -> Tuple[int, ...]:
+    return SELECTOR_OUT_NUSCENES if dataset == "nuscenes" else SELECTOR_OUT_2D
 
 
 def _bn_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -46,9 +52,10 @@ def _bn_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 
 class AFE(nn.Module):
-    def __init__(self, max_object: int = 100, align_corners: bool = True):
+    def __init__(self, max_object: int = 100, align_corners: bool = True,
+                 dataset: str = "mot"):
         super().__init__()
-        outs = SELECTOR_OUT_2D
+        outs = selector_out_channels(dataset)
         self.max_object = max_object
         self.align_corners = align_corners
         self.embed_dim = int(sum(outs))

@@ -10,8 +10,10 @@ Entry points, with the JAX layouts at their boundary:
 
 * ``forward(image)`` -> ``({head: [B, H/4, W/4, C]}, feature_maps[13])``;
   ``image`` is NHWC as in the JAX package, feature maps stay NCHW;
-* ``detect(image, k)`` -> sigmoided + decoded top-K detections and their AFE
-  embeddings (no ``flip_test``, no ``parity_tf`` yet);
+* ``detect(image, k)`` -> sigmoided + decoded top-K detections (the depth
+  head decoded to metres) and their AFE embeddings, for any batch (the
+  nuScenes rig runs its cameras as one batch; no ``flip_test``, no
+  ``parity_tf`` yet);
 * ``extract`` and ``window_similarity`` re-export the AFE head;
 * the fused per-frame tracking programs ``frame_step``, ``frame_chunk`` and
   ``frame_chunk_batched`` (``deft_tpu/models/deft.py:319-576``): device warp
@@ -110,7 +112,8 @@ class DEFTNet(DLASeg):
     def __init__(self, heads: Dict[str, int], head_convs: Dict[str, Sequence[int]],
                  spec: NodeSpec, max_object: int = 100,
                  prior_bias: float = -4.6, head_kernel: int = 3,
-                 align_corners: bool = True):
+                 align_corners: bool = True, dataset: str = "mot",
+                 depth_scale: float = 1.0):
         super().__init__(spec)
         self.heads = dict(heads)
         last_channel = self.base.channels[self.first_level]
@@ -118,8 +121,9 @@ class DEFTNet(DLASeg):
             setattr(self, h, HeadTower(
                 last_channel, c, tuple(head_convs.get(h, ())), head_kernel,
                 prior_bias if "hm" in h else None))
-        self.AFE = AFE(max_object, align_corners)
+        self.AFE = AFE(max_object, align_corners, dataset)
         self.max_object = max_object
+        self.depth_scale = depth_scale
         # input normalization constants, on the model's device
         self.register_buffer("input_mean", torch.tensor(MEAN),
                              persistent=False)
@@ -157,6 +161,10 @@ class DEFTNet(DLASeg):
         """
         outputs, feature_maps = self(image)
         outputs["hm"] = clamped_sigmoid(outputs["hm"])
+        if "dep" in outputs:
+            # inference depth decode (deft_tpu/models/deft.py:231-235)
+            outputs["dep"] = (1.0 / (torch.sigmoid(outputs["dep"]) + 1e-6)
+                              - 1.0) * self.depth_scale
         dets = generic_decode(outputs, k=k)
         bboxes = dets.get("bboxes")
         if bboxes is None:

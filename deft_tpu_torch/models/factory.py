@@ -45,10 +45,6 @@ def create_model(arch: str, cfg: Config, device="cuda") -> DEFTNet:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet; the port runs dla_34 "
             "(ROADMAP.md, queue A: other archs)")
-    if cfg.dataset == "nuscenes":
-        raise NotImplementedError(
-            "the nuScenes model (3-D heads, wider AFE) is not ported yet "
-            "(ROADMAP.md, queue A)")
     if cfg.compute_dtype not in ("float32", ""):
         raise NotImplementedError(
             "bf16 compute is not ported yet (ROADMAP.md, queue A)")
@@ -64,7 +60,8 @@ def create_model(arch: str, cfg: Config, device="cuda") -> DEFTNet:
             head_convs={h: tuple(c) for h, c in cfg.head_convs.items()},
             spec=spec, max_object=cfg.max_object,
             prior_bias=cfg.prior_bias, head_kernel=cfg.head_kernel,
-            align_corners=cfg.align_corners)
+            align_corners=cfg.align_corners, dataset=cfg.dataset,
+            depth_scale=cfg.depth_scale)
     init_model(model, cfg.seed, cfg.prior_bias)
     return model.to(dev).eval()
 

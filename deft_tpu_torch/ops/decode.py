@@ -1,6 +1,7 @@
 """CenterNet-style heatmap decoding, the counterpart of
-``deft_tpu/ops/decode.py`` for the heads of the MOT model (hm, reg, wh,
-tracking, ltrb_amodal).
+``deft_tpu/ops/decode.py`` for the heads of the MOT and nuScenes models (hm,
+reg, wh, tracking, ltrb_amodal and the 3-D heads dep, rot, dim,
+amodel_offset, nuscenes_att, velocity).
 
 Layout is the JAX functions': head maps ``{name: [B, H, W, C]}``.  Every
 output is fixed-shape: K detections always come back, ranked by score, and
@@ -18,6 +19,11 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+
+# heads decoded as their values at the peaks (deft_tpu/ops/decode.py:148-151)
+GATHERED = ("tracking", "dep", "rot", "dim", "amodel_offset", "nuscenes_att",
+            "velocity")
 
 
 def clamped_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +79,7 @@ def generic_decode(output: Dict[str, torch.Tensor],
     tensors: scores, clses, cts, xs, ys, inds, bboxes and the regression
     heads present.  ``ltrb_amodal`` overrides the wh-derived boxes.
     """
-    other = set(output) - {"hm", "reg", "wh", "tracking", "ltrb_amodal"}
+    other = set(output) - {"hm", "reg", "wh", "ltrb_amodal", *GATHERED}
     if other:
         raise NotImplementedError(
             f"decoding heads {sorted(other)} is not ported yet (ROADMAP.md, "
@@ -107,8 +113,9 @@ def generic_decode(output: Dict[str, torch.Tensor],
                                    xs + wh[..., 0:1] / 2,
                                    ys + wh[..., 1:2] / 2], dim=2)
 
-    if "tracking" in output:
-        ret["tracking"] = gather_feat(output["tracking"], inds)
+    for head in GATHERED:
+        if head in output:
+            ret[head] = gather_feat(output[head], inds)
 
     if "ltrb_amodal" in output:
         ltrb = gather_feat(output["ltrb_amodal"], inds)

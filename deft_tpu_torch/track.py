@@ -1,36 +1,68 @@
-"""Sequence tracking and the MOT results writer, the counterpart of the
-tracking path of ``test.py`` and of ``deft_tpu/data/datasets/mot.py``'s
-writer.
+"""Sequence tracking and the results writers, the counterpart of the
+tracking path of ``test.py``, of ``deft_tpu/data/datasets/mot.py``'s writer
+and of ``deft_tpu/data/datasets/nuscenes.py``'s submission.
 
 * ``track_videos`` drives a ``PipelinedRunner`` over sequences of decoded
   frames the way ``test.py:172-210`` does: ``reset`` per sequence, ``submit``
   per frame, ``flush`` at the end, results keyed by image id;
+* ``track_nuscenes`` drives ``Detector.run_multi`` over nuScenes scenes the
+  way ``test.py:134-170`` does: each scene's frames in sample-major order,
+  every sample's cameras as one batch;
 * ``tracks_to_results`` turns a frame's tracks into submission items;
 * ``save_mot_results`` writes one MOTChallenge txt per sequence, renumbering
-  track ids from 1 in sorted order.
+  track ids from 1 in sorted order;
+* ``nuscenes_submission`` builds the nuScenes tracking submission.
 
-Scoring is ``tools/eval_mot.py::evaluate_mot_dir`` on the written directory
-(numpy and scipy only).  Reading image files waits for a decoder in the port
-(ROADMAP.md, queue A): callers pass decoded uint8 BGR frames.
+Scoring MOT is ``tools/eval_mot.py::evaluate_mot_dir`` on the written
+directory (numpy and scipy only).  Reading image files waits for a decoder
+in the port (ROADMAP.md, queue A): callers pass decoded uint8 BGR frames.
 """
 
 from __future__ import annotations
 
 import os
 from collections import defaultdict
-from typing import Dict, Iterable, List, Sequence, Tuple
+from itertools import groupby
+from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
+from deft_tpu_torch.data.datasets import (
+    NUSCENES_CYCLES,
+    NUSCENES_ID_TO_ATTRIBUTE,
+    NUSCENES_INFO,
+    NUSCENES_PEDESTRIANS,
+    NUSCENES_TRACKING_IGNORED,
+    NUSCENES_VEHICLES,
+)
+from deft_tpu_torch.inference.geometry import camera_box_to_global
+
 
 def tracks_to_results(online, cls_default: int = 1) -> List[dict]:
-    """One frame's tracks -> submission items (``test.py:43-65``; the 2-D
-    tracks carry no class of their own)."""
-    return [{"bbox": np.asarray(t.tlbr, np.float32),
-             "score": float(t.score),
-             "class": cls_default,
-             "tracking_id": int(t.track_id),
-             "active": 1 if t.is_activated else 0} for t in online]
+    """One frame's tracks -> submission items (``test.py:43-65``).  The 2-D
+    tracks carry no class of their own; a nuScenes track adds its global box
+    and its class.  The class is the track's own (``test.py`` gives every
+    nuScenes item ``cls_default``, which the submission then reads as
+    "car")."""
+    out = []
+    for t in online:
+        item = {"bbox": np.asarray(t.tlbr, np.float32),
+                "score": float(t.score),
+                "class": cls_default,
+                "tracking_id": int(t.track_id),
+                "active": 1 if t.is_activated else 0}
+        if t.ddd_submission is not None:
+            sub = np.asarray(t.ddd_submission, np.float64)
+            item.update({
+                "class": NUSCENES_INFO.class_name.index(t.classe) + 1,
+                "translation": sub[0:3].tolist(),
+                "size": sub[3:6].tolist(),
+                "rotation": sub[6:10].tolist(),
+                "detection_name": t.classe,
+                "velocity": [0, 0],
+            })
+        out.append(item)
+    return out
 
 
 Video = Tuple[object, Sequence[Tuple[int, np.ndarray]]]
@@ -54,6 +86,40 @@ def track_videos(runner, videos: Iterable[Video],
                                                             cls_default)
         for tracks in runner.flush():
             results[pending.pop(0)] = tracks_to_results(tracks, cls_default)
+    return results
+
+
+NuScene = Tuple[object, Sequence[Tuple[dict, np.ndarray]]]
+
+
+def sample_major(frames: Iterable[Tuple[dict, np.ndarray]]):
+    """One scene's (image info, frame) pairs in the reference's nuScenes
+    order: every camera of sample t, by sensor id, before sample t+1
+    (``test.py:26-40``)."""
+    return sorted(frames, key=lambda f: (f[0]["frame_id"],
+                                         f[0].get("sensor_id", 1)))
+
+
+def track_nuscenes(detector, scenes: Iterable[NuScene]
+                   ) -> Dict[int, List[dict]]:
+    """``scenes``: (scene id, [(image info, decoded BGR frame), ...]) pairs;
+    an image info holds the converter's ``id``, ``frame_id``,
+    ``sensor_id``, ``calib`` and camera / ego-pose records.  Trackers reset
+    per scene; each sample's cameras go through one ``run_multi``.  Returns
+    {image id: submission items}."""
+    results: Dict[int, List[dict]] = {}
+    for _, frames in scenes:
+        detector.reset_tracking()
+        for _, sample in groupby(sample_major(frames),
+                                 key=lambda f: f[0]["frame_id"]):
+            infos, images = zip(*sample)
+            online = detector.run_multi(
+                list(images),
+                [{"calib": info["calib"]} if "calib" in info else {}
+                 for info in infos],
+                list(infos), materialize=tracks_to_results)
+            for info, items in zip(infos, online):
+                results[info["id"]] = items
     return results
 
 
@@ -83,3 +149,93 @@ def save_mot_results(results: Dict[int, List[dict]], videos: Sequence[dict],
                             f"{t[3] - t[1]:.2f},{t[4] - t[2]:.2f},"
                             "-1,-1,-1,-1\n")
     return results_dir
+
+
+def _attribute(class_name: str, natt) -> str:
+    """The attribute of a class family: the argmax of its slice of the
+    8-way nuscenes_att head."""
+    natt = np.asarray(natt, np.float32)
+    if class_name in NUSCENES_CYCLES:
+        return NUSCENES_ID_TO_ATTRIBUTE[int(np.argmax(natt[0:2])) + 1]
+    if class_name in NUSCENES_PEDESTRIANS:
+        return NUSCENES_ID_TO_ATTRIBUTE[int(np.argmax(natt[2:5])) + 3]
+    if class_name in NUSCENES_VEHICLES:
+        return NUSCENES_ID_TO_ATTRIBUTE[int(np.argmax(natt[5:8])) + 6]
+    return ""
+
+
+def nuscenes_submission(results: Mapping[int, Sequence[dict]],
+                        image_infos: Mapping[int, dict],
+                        tracking: bool = True) -> dict:
+    """The nuScenes tracking / detection submission
+    (``deft_tpu/data/datasets/nuscenes.py:44-134``): each item in the global
+    frame (camera boxes go through the image's camera and ego-pose records),
+    its attribute by class family, its velocity in the global frame, and per
+    sample the 500 best by score.  ``results``: {image id: items};
+    ``image_infos``: {image id: image info}."""
+    ret = {
+        "meta": {"use_camera": True, "use_lidar": False, "use_radar": False,
+                 "use_map": False, "use_external": False},
+        "results": {},
+    }
+    for image_id, dets in results.items():
+        info = image_infos[image_id]
+        trans_matrix = np.array(info["trans_matrix"], np.float64)
+        sample_results = []
+        for item in dets:
+            class_name = (NUSCENES_INFO.class_name[int(item["class"] - 1)]
+                          if "class" in item else item["detection_name"])
+            if tracking and class_name in NUSCENES_TRACKING_IGNORED:
+                continue
+            score = float(item["score"] if "score" in item
+                          else item["detection_score"])
+            if "size" in item:
+                size = list(item["size"])
+            else:
+                size = [float(item["dim"][1]), float(item["dim"][2]),
+                        float(item["dim"][0])]
+            if "translation" in item:
+                translation = item["translation"]
+            else:
+                translation = trans_matrix @ np.array(
+                    [item["loc"][0], item["loc"][1] - size[2],
+                     item["loc"][2], 1], np.float64)
+            if "rotation" in item:
+                rotation = item["rotation"]
+            else:
+                q = camera_box_to_global(
+                    item["loc"], size, item["rot_y"], info["cs_record_rot"],
+                    info["cs_record_trans"], info["pose_record_rot"],
+                    info["pose_record_trans"]).orientation
+                rotation = [float(q.w), float(q.x), float(q.y), float(q.z)]
+            att = item.get("attribute_name")
+            if att is None:
+                att = _attribute(class_name,
+                                 item.get("nuscenes_att", np.zeros(8)))
+            vel = item.get("velocity", [0, 0, 0])
+            if len(vel) != 2:
+                v = trans_matrix @ np.array([vel[0], vel[1], vel[2], 0],
+                                            np.float64)
+                vel = [float(v[0]), float(v[1])]
+            sample_results.append({
+                "sample_token": info["sample_token"],
+                "translation": [float(t) for t in translation[:3]],
+                "size": [float(v) for v in size],
+                "rotation": rotation,
+                "velocity": vel,
+                "detection_name": class_name,
+                "attribute_name": att,
+                "detection_score": score,
+                "tracking_name": class_name,
+                "tracking_score": score,
+                "tracking_id": item.get("tracking_id", 1),
+                "sensor_id": info.get("sensor_id", 1),
+                "det_id": item.get("det_id", -1),
+            })
+        ret["results"].setdefault(info["sample_token"], []).extend(
+            sample_results)
+    for token, dets in ret["results"].items():
+        order = sorted(range(len(dets)),
+                       key=lambda i: -dets[i]["detection_score"])
+        ret["results"][token] = [dets[i] for i in order[:500]]
+    return ret

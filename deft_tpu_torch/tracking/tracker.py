@@ -1,5 +1,4 @@
-"""Online track management, copied from ``deft_tpu/tracking/tracker.py``
-(2-D path: MOT and KITTI).
+"""Online track management, copied from ``deft_tpu/tracking/tracker.py``.
 
 * ``DeviceFeatureRecorder`` keeps the 50-frame embedding window as one
   ``[W, max_object, E]`` tensor on the detector's device, written in place
@@ -10,9 +9,12 @@
   where the temporal decay weighting is applied.
 
 * ``STrack`` / ``Tracker`` reproduce the association cascade host-side
-  (appearance -> motion fusion -> second-chance AFE (KITTI) -> IoU ->
-  lifecycle) with the Kalman filter.  The LSTM motion model and the
-  nuScenes 3-D branches wait for later slices (ROADMAP.md, queue A).
+  (appearance -> motion fusion -> second-chance AFE (nuScenes, KITTI) ->
+  IoU -> lifecycle) with the Kalman filter or the LSTM motion model.  The
+  nuScenes branch (one tracker per class) first matches recent tracks by
+  3-D IoU (not for pedestrians), gates motion by the 3-D box centres and
+  steps the LSTM once per frame for every updated track, batched
+  (``_flush_lstm``).
 
 The tracker never touches the model: embeddings arrive pre-computed and
 similarity comes through an injected callable.
@@ -29,6 +31,7 @@ import torch
 from deft_tpu_torch.tracking import matching
 from deft_tpu_torch.tracking.basetrack import BaseTrack, IdAllocator, TrackState
 from deft_tpu_torch.tracking.kalman import KalmanFilter
+from deft_tpu_torch.tracking.motion_lstm import LSTMMotion
 
 MAX_RECORD_FRAME = 50
 DECAY = 1.0
@@ -43,7 +46,11 @@ _EYE4.setflags(write=False)
 def freshness_window(dataset: str) -> int:
     """Frames considered 'fresh' for full-strength similarity
     (tracker.py:77-82)."""
-    return 5 if dataset == "kitti_tracking" else 10
+    if dataset == "kitti_tracking":
+        return 5
+    if dataset == "nuscenes":
+        return 3
+    return 10
 
 
 class Node:
@@ -165,19 +172,40 @@ class DeviceFeatureRecorder:
 
 
 class STrack(BaseTrack):
-    """Single-track state with a Kalman motion model (tracker.py:142-628)."""
+    """Single-track state (tracker.py:142-628): a Kalman motion model, or the
+    LSTM's features, hidden state and future predictions; the nuScenes path
+    adds the 3-D box, depth, class and submission fields."""
 
-    def __init__(self, tlwh, score, node: Node):
+    def __init__(self, tlwh, score, node: Node, use_lstm: bool = False,
+                 dataset: str = "mot", ddd_bbox=None, depth=None,
+                 org_ddd_box=None, classe=None, ddd_submission=None):
         self._tlwh = np.asarray(tlwh, dtype=np.float64)
         self.kalman_filter = None
         # shared read-only placeholder: every consumer ASSIGNS a fresh
-        # covariance (KF initiate/update/predict)
+        # covariance (KF initiate/update/predict, _empirical_cov)
         self.mean, self.covariance = None, _EYE4
         self.is_activated = False
         self.score = score
         self.tracklet_len = 0
         # only the newest <= mm+1 nodes feed get_similarity
         self.nodes = deque([node], maxlen=8)
+        self.dataset = dataset
+        self.use_lstm = use_lstm
+        self.depth = depth
+        self.classe = classe
+        self.ddd_bbox = ddd_bbox
+        self.org_ddd_box = org_ddd_box
+        self.ddd_submission = ddd_submission
+        if use_lstm:
+            self.hn = np.zeros((1, 128), np.float32)
+            self.cn = np.zeros((1, 128), np.float32)
+            self.first_time = True
+            self.last_frame_id = -1
+            self._pending_feat = None   # flushed by Tracker._flush_lstm
+            self.future_predictions: Dict[int, np.ndarray] = {}
+            self.observations: List[List[float]] = []
+            self.observations_tlwh: List[np.ndarray] = [self._tlwh.copy()]
+            self.observations_ddd_bboxes: List[np.ndarray] = []
 
     # ---- motion -------------------------------------------------------------
 
@@ -195,6 +223,22 @@ class STrack(BaseTrack):
             st.mean = mean
             st.covariance = cov
 
+    def prediction_at_frame(self, frame_id: int) -> np.ndarray:
+        """The LSTM's prediction for ``frame_id`` (its last one beyond
+        them): [cx, cy, a, h] in 2-D, [h, w, l, x, y, z, rot] in 3-D."""
+        max_fut = 5 if self.dataset == "nuscenes" else 6
+        key = frame_id - self.frame_id
+        if 1 <= key < max_fut and key in self.future_predictions:
+            return self.future_predictions[key]
+        return self.future_predictions[max_fut - 1]
+
+    def prediction_at_frame_tlbr(self, frame_id: int) -> np.ndarray:
+        ret = self.prediction_at_frame(frame_id).copy()   # [cx, cy, a, h]
+        ret[2] *= ret[3]
+        ret[:2] -= ret[2:] / 2
+        ret[2:] += ret[:2]
+        return ret
+
     # ---- lifecycle ----------------------------------------------------------
 
     def activate(self, kalman_filter, frame_id: int, ids: IdAllocator):
@@ -205,10 +249,19 @@ class STrack(BaseTrack):
             self.is_activated = True
         self.frame_id = frame_id
         self.start_frame = frame_id
-        self.kalman_filter = kalman_filter
-        self.mean, self.covariance = kalman_filter.initiate(
-            self.tlwh_to_xyah(self._tlwh)
-        )
+        if self.use_lstm:
+            self._observe(self._tlwh, self.ddd_bbox)
+        else:
+            self.kalman_filter = kalman_filter
+            self.mean, self.covariance = kalman_filter.initiate(
+                self.tlwh_to_xyah(self._tlwh)
+            )
+
+    def _take_3d(self, new_track: "STrack"):
+        self.depth = new_track.depth
+        self.org_ddd_box = new_track.org_ddd_box
+        self.ddd_bbox = new_track.ddd_bbox
+        self.ddd_submission = new_track.ddd_submission
 
     def re_activate(self, new_track: "STrack", frame_id: int,
                     kf_result=None):
@@ -217,7 +270,10 @@ class STrack(BaseTrack):
         self.is_activated = True
         self.frame_id = frame_id
         self.nodes.append(new_track.nodes[-1])
-        if kf_result is not None:
+        self._take_3d(new_track)
+        if self.use_lstm:
+            self._observe(new_track.tlwh, new_track.ddd_bbox)
+        elif kf_result is not None:
             self.mean, self.covariance = kf_result
         else:
             self.mean, self.covariance = self.kalman_filter.update(
@@ -231,17 +287,135 @@ class STrack(BaseTrack):
         self.is_activated = True
         self.score = new_track.score
         self.nodes.append(new_track.nodes[-1])
-        if kf_result is not None:
+        self._take_3d(new_track)
+        if self.use_lstm:
+            self._observe(new_track.tlwh, new_track.ddd_bbox)
+        elif kf_result is not None:
             self.mean, self.covariance = kf_result
         else:
             self.mean, self.covariance = self.kalman_filter.update(
                 self.mean, self.covariance, self.tlwh_to_xyah(new_track.tlwh)
             )
 
+    # ---- LSTM features (tracker.py:408-580) ----------------------------------
+
+    def _observe(self, tlwh, ddd_box):
+        """Record an observation and stage the LSTM's input feature; the
+        cell step runs batched over the frame's tracks in
+        ``Tracker._flush_lstm``, and nothing reads ``future_predictions``
+        before it (the cascade queries only unmatched tracks')."""
+        if self.dataset == "nuscenes":
+            self.update_lstm_features_ddd(ddd_box)
+            self.observations_tlwh.append(np.asarray(tlwh).copy())
+        else:
+            self.update_lstm_features(tlwh)
+
+    @staticmethod
+    def _empirical_cov(obs) -> np.ndarray:
+        arr = np.asarray(obs)
+        if arr.shape[0] < 2:
+            return np.eye(arr.shape[1]) if arr.ndim == 2 else np.eye(4)
+        return np.cov(arr.T)
+
+    def _elapsed(self) -> int:
+        return max(self.frame_id - self.last_frame_id, 1)
+
+    def update_lstm_features(self, tlwh):
+        """The 11-d 2-D feature [cx, cy, dcx, dcy, h, w, w/h, dh, dw, vx, vy]
+        in float64, staged as float32."""
+        self.observations_tlwh.append(np.asarray(tlwh, np.float64).copy())
+        self.observations.append(self.tlwh_to_xyah(tlwh).tolist())
+        self.covariance = self._empirical_cov(self.observations)
+
+        box = np.asarray(tlwh, np.float64).copy()
+        box[:2] += box[2:] / 2
+        c_x, c_y, w, h = box.tolist()
+        h_w_ratio = w / h if h != 0 else 0.0
+        if self.first_time:
+            self.first_time = False
+            delta_h = delta_w = v_x = v_y = delta_cx = delta_cy = 0.0
+        else:
+            dt = self._elapsed()
+            delta_h = h - self.last_h
+            delta_w = w - self.last_w
+            v_x = delta_cx = (c_x - self.last_cx) / dt
+            v_y = delta_cy = (c_y - self.last_cy) / dt
+        self.last_h, self.last_w = h, w
+        self.last_cx, self.last_cy = c_x, c_y
+        self.last_frame_id = self.frame_id
+        self._pending_feat = np.array(
+            [c_x, c_y, delta_cx, delta_cy, h, w, h_w_ratio, delta_h, delta_w,
+             v_x, v_y], np.float32)
+
+    def _apply_lstm_deltas(self, deltas: np.ndarray):
+        """Deltas [future, 4] ([dcx, dcy, dh, dw]) -> predictions
+        [cx, cy, a = w/h, h] per future frame."""
+        f = self._pending_feat.astype(np.float64)
+        c_x, c_y, h, w = f[0], f[1], f[4], f[5]
+        preds = {}
+        for i in range(deltas.shape[0]):
+            p = deltas[i].astype(np.float64)
+            cx_p, cy_p = c_x + p[0], c_y + p[1]
+            h_p, w_p = h + p[2], w + p[3]
+            preds[i + 1] = np.array(
+                [cx_p, cy_p, (w_p / h_p if h_p != 0 else 0.0), h_p])
+        self.future_predictions = preds
+        self._pending_feat = None
+
+    def update_lstm_features_ddd(self, ddd_box):
+        """The 18-d 3-D feature [x, y, z, dx, dy, dz, h, w, l, dh, dw, dl,
+        vx, vy, vz, rot, drot, vrot] in float64, staged as float32."""
+        ddd_box = np.asarray(ddd_box, np.float64)
+        self.observations_ddd_bboxes.append(ddd_box.copy())
+        self.covariance = self._empirical_cov(self.observations_ddd_bboxes)
+
+        h, w, l, c_x, c_y, c_z, rot_y = ddd_box.tolist()
+        if self.first_time:
+            self.first_time = False
+            delta_h = delta_w = delta_l = 0.0
+            v_x = v_y = v_z = v_rot = 0.0
+            delta_cx = delta_cy = delta_cz = delta_rot = 0.0
+        else:
+            dt = self._elapsed()
+            delta_h, delta_w = h - self.last_h, w - self.last_w
+            delta_l = l - self.last_l
+            v_x = (c_x - self.last_cx) / dt
+            v_y = (c_y - self.last_cy) / dt
+            v_z = (c_z - self.last_cz) / dt
+            v_rot = (rot_y - self.last_rot_y) / dt
+            delta_cx, delta_cy, delta_cz = (
+                c_x - self.last_cx, c_y - self.last_cy, c_z - self.last_cz)
+            delta_rot = rot_y - self.last_rot_y
+        self.last_h, self.last_w, self.last_l = h, w, l
+        self.last_cx, self.last_cy, self.last_cz = c_x, c_y, c_z
+        self.last_rot_y = rot_y
+        self.last_frame_id = self.frame_id
+        self._pending_feat = np.array(
+            [c_x, c_y, c_z, delta_cx, delta_cy, delta_cz, h, w, l, delta_h,
+             delta_w, delta_l, v_x, v_y, v_z, rot_y, delta_rot, v_rot],
+            np.float32)
+
+    def _apply_lstm_deltas_ddd(self, deltas: np.ndarray):
+        """Deltas [future, 4] ([dx, dy, dz, drot]) -> predictions
+        [h, w, l, x, y, z, rot] per future frame."""
+        f = self._pending_feat.astype(np.float64)
+        c_x, c_y, c_z = f[0], f[1], f[2]
+        h, w, l = f[6], f[7], f[8]
+        rot_y = f[15]
+        preds = {}
+        for i in range(deltas.shape[0]):
+            p = deltas[i].astype(np.float64)
+            preds[i + 1] = np.array(
+                [h, w, l, c_x + p[0], c_y + p[1], c_z + p[2], rot_y + p[3]])
+        self.future_predictions = preds
+        self._pending_feat = None
+
     # ---- geometry -----------------------------------------------------------
 
     @property
     def tlwh(self) -> np.ndarray:
+        if self.use_lstm:
+            return self.observations_tlwh[-1].copy()
         if self.mean is None:
             return self._tlwh.copy()
         ret = self.mean[:4].copy()
@@ -275,20 +449,18 @@ class STrack(BaseTrack):
 
 
 class Tracker:
-    """Per-sequence online tracker (tracker.py:631-1056), 2-D datasets."""
+    """Per-sequence online tracker (tracker.py:631-1056).  nuScenes runs one
+    per class, each with the LSTM motion model."""
 
     def __init__(self, dataset: str, max_object: int, embed_dim: int,
                  similarity_fn: Callable, use_lstm: bool = False,
+                 motion: Optional[LSTMMotion] = None,
                  frame_rate: int = 10, track_buffer: int = 30,
                  ids: Optional[IdAllocator] = None, device="cpu"):
-        if use_lstm:
-            raise NotImplementedError(
-                "the LSTM motion model is not ported yet; it comes with the "
-                "nuScenes slice (ROADMAP.md, queue A)")
-        if dataset == "nuscenes":
-            raise NotImplementedError(
-                "the nuScenes 3-D tracker is not ported yet (ROADMAP.md, "
-                "queue A)")
+        if dataset == "nuscenes" and not use_lstm:
+            # the 3-D gate measures [h, w, l, x, y, z, rot] boxes, which the
+            # Kalman state does not hold (the JAX package fails there too)
+            raise ValueError("the nuScenes tracker needs use_lstm=True")
         self.dataset = dataset
         self.tracked_stracks: List[STrack] = []
         self.lost_stracks: List[STrack] = []
@@ -297,7 +469,14 @@ class Tracker:
         self.buffer_size = int(frame_rate / 30.0 * track_buffer)
         self.max_time_lost = self.buffer_size
         self.det_thresh = 0.0
-        self.kalman_filter = KalmanFilter()
+        self.use_lstm = use_lstm
+        self.motion = None
+        self.kalman_filter = None
+        if use_lstm:
+            self.motion = (motion if motion is not None
+                           else LSTMMotion(dataset, device=device))
+        else:
+            self.kalman_filter = KalmanFilter()
         self.ids = ids if ids is not None else IdAllocator()
         self.recorder = DeviceFeatureRecorder(
             dataset, max_object, embed_dim, similarity_fn, device=device
@@ -323,7 +502,8 @@ class Tracker:
             return out
         _, slab, f2i, pre_ns = slab_entry
         d_tab = slab.shape[2]
-        mm = 4            # median over the newest mm rows when > mm+1 exist
+        # median over the newest mm rows when > mm+1 exist
+        mm = 2 if self.dataset == "nuscenes" else 4
 
         # (frame-slot, row-id) per track with the keep-newest-mm-of->(mm+1)
         # rule, vectorized: newest-first, drop nodes older than
@@ -414,7 +594,9 @@ class Tracker:
                 track.re_activate(det, self.frame_id, kf_result=pre)
 
     def update(self, detections_in: List[Dict], embeddings,
-               sims: Optional[np.ndarray] = None) -> List[STrack]:
+               sims: Optional[np.ndarray] = None, ddd_boxes=None, depths=None,
+               ddd_org_boxes=None, submission=None,
+               classe: Optional[str] = None) -> List[STrack]:
         """One frame.
 
         detections_in: list of dicts with 'bbox' (tlbr) and 'score';
@@ -422,20 +604,31 @@ class Tracker:
         (a tensor on any device, or numpy), unused when ``sims`` is given;
         sims: the window similarity a frame program already computed
         (``DeviceFeatureRecorder.ingest`` layouts); the recorder then makes
-        no similarity call of its own (tracker.py:677-721).
+        no similarity call of its own (tracker.py:677-721).  nuScenes adds
+        per detection its [h, w, l, x, y, z, rot] global box, depth, camera
+        box and submission fields, and the tracker's ``classe``.
         """
         self.frame_id += 1
         activated: List[STrack] = []
         removed: List[STrack] = []
         output: List[STrack] = []
+        ddd = self.dataset == "nuscenes"
 
         n_det = len(detections_in)
         if n_det > 0:
             nodes = [Node(self.frame_id, i) for i in range(n_det)]
             detections = [
-                STrack(STrack.tlbr_to_tlwh(d["bbox"]), d["score"], node)
+                STrack(STrack.tlbr_to_tlwh(d["bbox"]), d["score"], node,
+                       use_lstm=self.use_lstm, dataset=self.dataset)
                 for d, node in zip(detections_in, nodes)
             ]
+            if ddd:
+                for i, det in enumerate(detections):
+                    det.ddd_bbox = np.asarray(ddd_boxes[i])
+                    det.depth = float(np.ravel(depths[i])[0])
+                    det.org_ddd_box = np.asarray(ddd_org_boxes[i])
+                    det.classe = classe
+                    det.ddd_submission = submission[i]
             if sims is not None:
                 self.recorder.ingest(self.frame_id, sims,
                                      min(n_det, self.recorder.max_object))
@@ -446,49 +639,82 @@ class Tracker:
 
         tracked_stracks = list(self.tracked_stracks)
         strack_pool = joint_stracks(tracked_stracks, self.lost_stracks)
-        STrack.multi_predict(
-            [t for t in strack_pool if t.mean is not None], self.kalman_filter
-        )
+        if not self.use_lstm:
+            STrack.multi_predict(
+                [t for t in strack_pool if t.mean is not None],
+                self.kalman_filter)
         lll = n_det
+        # the detections the AFE similarity's columns keep
+        cols = list(range(n_det))
+
+        # -- nuScenes, not pedestrians: 3-D IoU on recent tracks first -------
+        if ddd and classe != "pedestrian":
+            pool_old = [t for t in strack_pool
+                        if abs(t.frame_id - self.frame_id) >= 3]
+            pool_new = [t for t in strack_pool
+                        if abs(t.frame_id - self.frame_id) < 3]
+            dists = matching.iou_ddd_distance(pool_new, detections)
+            matches, u_track, u_detection0 = matching.linear_assignment(
+                dists, thresh=0.999)
+            for itracked, idet in matches:
+                track = pool_new[itracked]
+                output.append(track)
+                if track.state == TrackState.Tracked:
+                    track.update(detections[idet], self.frame_id)
+                    activated.append(track)
+                else:
+                    track.re_activate(detections[idet], self.frame_id)
+            cols = list(u_detection0)
+            detections = [detections[i] for i in u_detection0]
+            strack_pool = joint_stracks([pool_new[i] for i in u_track],
+                                        pool_old)
 
         # -- primary association: AFE similarity + motion fusion --------------
         dists = np.zeros((len(strack_pool), len(detections)))
         if dists.size != 0:
             dists = self.get_similarity(self.frame_id, strack_pool, lll)
-            dists = 1.0 - dists[:, :-1]
-        dists = matching.fuse_motion(dists, strack_pool, detections)
+            dists = 1.0 - dists[:, :-1][:, cols]
+        if ddd:
+            dists = matching.fuse_motion_ddd(dists, strack_pool, detections,
+                                             classe_name=classe)
+        else:
+            dists = matching.fuse_motion(dists, strack_pool, detections,
+                                         frame_id=self.frame_id,
+                                         use_lstm=self.use_lstm)
         matches, u_track, u_detection2 = matching.linear_assignment(dists, 0.9)
         self._apply_matches(strack_pool, detections, matches, activated,
                             output)
         r_tracked = [strack_pool[i] for i in u_track]
         detections = [detections[i] for i in u_detection2]
 
-        # -- second-chance AFE-only pass (KITTI) -------------------------------
-        if self.dataset == "kitti_tracking" and len(detections) > 0:
+        # -- second-chance AFE-only pass (nuScenes, KITTI) ---------------------
+        u_track = list(range(len(r_tracked)))
+        if self.dataset in ("nuscenes", "kitti_tracking") and detections:
             dists = self.get_similarity(self.frame_id, r_tracked, lll)
             if dists.size != 0:
-                dists = 1.0 - dists[:, :-1][:, u_detection2]
+                dists = 1.0 - dists[:, :-1][:, cols][:, u_detection2]
                 matches, u_track, u_detection = matching.linear_assignment(
                     dists, 0.9
                 )
                 self._apply_matches(r_tracked, detections, matches,
                                     activated, output)
                 detections = [detections[i] for i in u_detection]
-            else:
-                u_track = list(range(len(r_tracked)))
-        else:
-            u_track = list(range(len(r_tracked)))
         strack_pool = r_tracked
 
         # -- IoU association on the remainder ---------------------------------
-        if self.dataset == "kitti_tracking":
+        if self.dataset in ("kitti_tracking", "nuscenes"):
+            recent = 3 if ddd else 6
             r_tracked = [strack_pool[i] for i in u_track
-                         if abs(self.frame_id - strack_pool[i].frame_id) < 6]
+                         if abs(self.frame_id - strack_pool[i].frame_id)
+                         < recent]
         else:
             r_tracked = [strack_pool[i] for i in u_track
                          if strack_pool[i].state == TrackState.Tracked]
-        dists = matching.iou_distance(r_tracked, detections)
-        matches, u_track, u_detection = matching.linear_assignment(dists, 0.9)
+        dists = matching.iou_distance(
+            r_tracked, detections, self.frame_id,
+            use_prediction=self.use_lstm and not ddd)
+        matches, u_track, u_detection = matching.linear_assignment(
+            dists, 0.0 if ddd else 0.9)
         self._apply_matches(r_tracked, detections, matches, activated,
                             output)
 
@@ -524,8 +750,35 @@ class Tracker:
         self.lost_stracks = sub_stracks(self.lost_stracks, self.removed_stracks)
         self.removed_stracks.extend(removed)
         self.tracked_stracks, self.lost_stracks = remove_duplicate_stracks(
-            self.tracked_stracks, self.lost_stracks)
+            self.tracked_stracks, self.lost_stracks, ddd_tracking=ddd)
+        if self.use_lstm:
+            self._flush_lstm(output)
         return output
+
+    def _flush_lstm(self, tracks: Sequence[STrack]):
+        """One batched LSTM step for every track updated this frame
+        (tracker.py:872-899): the staged features through
+        ``LSTMMotion.predict_batch``, hidden state and future predictions
+        back to each track."""
+        seen = set()
+        pend = []
+        for t in tracks:
+            if t._pending_feat is not None and id(t) not in seen:
+                seen.add(id(t))
+                pend.append(t)
+        if not pend:
+            return
+        h = np.concatenate([t.hn for t in pend], axis=0)
+        c = np.concatenate([t.cn for t in pend], axis=0)
+        feats = np.stack([t._pending_feat for t in pend])
+        h2, c2, deltas = self.motion.predict_batch(h, c, feats)
+        for i, t in enumerate(pend):
+            t.hn = h2[i: i + 1]
+            t.cn = c2[i: i + 1]
+            if self.dataset == "nuscenes":
+                t._apply_lstm_deltas_ddd(deltas[i])
+            else:
+                t._apply_lstm_deltas(deltas[i])
 
 
 def stacked_tlbrs(tracks) -> np.ndarray:
@@ -566,8 +819,11 @@ def sub_stracks(tlista, tlistb):
     return list(stracks.values())
 
 
-def remove_duplicate_stracks(stracksa, stracksb):
-    pdist = matching.iou_distance(stracksa, stracksb)
+def remove_duplicate_stracks(stracksa, stracksb, ddd_tracking=False):
+    if ddd_tracking:
+        pdist = matching.iou_ddd_distance(stracksa, stracksb)
+    else:
+        pdist = matching.iou_distance(stracksa, stracksb)
     pairs = np.where(pdist < 0.15)
     dupa, dupb = [], []
     for p, q in zip(*pairs):

@@ -152,3 +152,98 @@ def test_clamped_kernels_reject_negative_radius(cuda_device):
     for fn in (cuda_dcn.deform_sample_tap, cuda_dcn.deform_sample_onehot):
         with pytest.raises(ValueError):
             fn(x, offs, mask, -1)
+
+
+# ---- the nuScenes slice on the card -----------------------------------------
+
+# DCNv2 layers of one 448x800 nuScenes camera: (H, W, Cin, Cout)
+NUSCENES_LAYERS = [(112, 200, 64, 64), (56, 100, 128, 64), (56, 100, 128, 128),
+                   (28, 50, 256, 128), (28, 50, 256, 256), (28, 50, 256, 64),
+                   (14, 25, 512, 256)]
+
+
+@pytest.mark.parametrize("h,w,c,cout", NUSCENES_LAYERS)
+@pytest.mark.parametrize("regime", ["trained", "uniform6"])
+def test_dcn_sample_at_nuscenes_shapes(cuda_device, h, w, c, cout, regime):
+    """T1 and the layer's product against the plain versions, as the
+    nuScenes model runs them (a camera's slice of the batch, radius 4):
+    patches within 1e-5 * max|x|, outputs within 1e-5 * max|out|."""
+    x, offs, mask = _inputs(h, w, c, 7, cuda_device, torch.float32)
+    if regime == "trained":
+        offs = (offs / 3.0).clamp(-2.0, 2.0)
+    rng = np.random.RandomState(8)
+    weight = torch.from_numpy((rng.randn(9 * c, cout) / np.sqrt(9 * c)
+                               ).astype(np.float32)).to(cuda_device)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda_device)
+    batch = torch.stack([x, x.flip(0)])       # an odd W stays aligned per camera
+    before = cuda_dcn.LAUNCHES
+    got = cuda_dcn.deform_conv(batch[1].contiguous(), offs, mask, weight,
+                               bias, 4)
+    patches = cuda_dcn.deform_sample(batch[1].contiguous(), offs, mask, 4)
+    torch.cuda.synchronize()
+    assert cuda_dcn.LAUNCHES == before + 2
+    ref_p = cuda_dcn.deform_sample_reference(x.flip(0), offs, mask, 4)
+    ref = (torch.addmm(bias, ref_p, weight)).reshape(h, w, cout)
+    assert (patches - ref_p).abs().max() <= 1e-5 * x.abs().max()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_lstm_step_on_card_matches_cpu(cuda_device):
+    from deft_tpu_torch.tracking.motion_lstm import LSTMMotion
+
+    cpu = LSTMMotion("nuscenes", seed=3, device="cpu")
+    card = LSTMMotion("nuscenes", cpu.model.state_dict(), device=cuda_device)
+    rng = np.random.RandomState(9)
+    h, c = rng.randn(2, 37, 128).astype(np.float32)
+    f = (rng.randn(37, 18) * 5).astype(np.float32)
+    for a, b in zip(card.predict_batch(h, c, f), cpu.predict_batch(h, c, f)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_run_multi_on_card_matches_cpu(cuda_device):
+    """A tiny nuScenes config through ``Detector.run_multi`` on the card and
+    on the CPU with the same weights: finite boxes, the same ids on at
+    least half of the cameras (cuDNN and the CPU sum the convolutions in
+    other orders, which random weights amplify) and there boxes within
+    1e-2 px."""
+    from deft_tpu_torch.config import nuscenes_config
+    from deft_tpu_torch.data.synthetic_nuscenes import make_scene
+    from deft_tpu_torch.inference.detector import Detector
+
+    cfg = nuscenes_config(input_h=96, input_w=160, K=32, max_object=16)
+    cpu = Detector(cfg, device="cpu")
+    scene = make_scene(n_samples=2, cameras=6, height=180, width=320,
+                       n_objects=12)
+    with torch.no_grad():
+        # ~2% of the first camera's pixels above 0.5 in every class
+        images, _ = cpu.pre_process(scene[0][1], {"calib": scene[0][0]["calib"]})
+        z = cpu.model(images)[0]["hm"]
+        out = cpu.model.hm[-1]
+        gain = 2.0 / z.std()
+        out.weight.mul_(gain)
+        out.bias.copy_((out.bias - torch.quantile(
+            z.reshape(-1, z.shape[-1]), 0.98, dim=0)) * gain)
+        cpu.model.dim[-1].bias.copy_(torch.tensor([1.6, 1.9, 4.5]))
+        cpu.model.dep[-1].bias.fill_(-3.0)
+    card = Detector(cfg, cpu.model.state_dict(), device=cuda_device,
+                    motion_state_dict=cpu.motion.model.state_dict())
+
+    def snap(online):
+        return [(t.track_id, np.asarray(t.tlbr)) for t in online]
+
+    agree = total = 0
+    for i in range(0, len(scene), 6):
+        sample = scene[i: i + 6]
+        args = ([f for _, f in sample],
+                [{"calib": inf["calib"]} for inf, _ in sample],
+                [inf for inf, _ in sample])
+        got = card.run_multi(*args, materialize=snap)
+        want = cpu.run_multi(*args, materialize=snap)
+        for g, w in zip(got, want):
+            total += 1
+            assert all(np.isfinite(t[1]).all() for t in g)
+            if [t[0] for t in g] == [t[0] for t in w]:
+                agree += 1
+                for a, b in zip(g, w):
+                    np.testing.assert_allclose(a[1], b[1], rtol=0, atol=1e-2)
+    assert agree >= total // 2, f"{agree} of {total} cameras agree"
