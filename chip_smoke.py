@@ -30,8 +30,9 @@ just after, that every DCNv2 layer of every frame went through its kernel
 (and, on nuScenes, that the LSTM stepped tracks).
 The kernel phase also checks that ``dcn_sample_tap`` on x equals
 ``dcn_sample`` on x rounded to bf16 bit for bit, that ``dcn_fused`` (split-K,
-no atomics) gives the same bits on two calls, and times ``dcn_sample_tap``
-plus the GEMM that reads its patches.
+no atomics) gives the same bits on two calls, times ``dcn_sample_tap``
+plus the GEMM that reads its patches, and gives each ``dcn_sample_onehot``
+row the tile, slice and window of its plan (``cuda_dcn.plan_onehot``).
 ``dcn_fused`` and ``dcn_sample_onehot`` replace TPU kernels that nothing in
 the JAX package calls, so no path reaches them: their launches are the
 kernel phase's.  It imports nothing of JAX.
@@ -106,7 +107,7 @@ KERNELS = {
                        "deft_tpu/ops/pallas_dcn.py:338", "LAUNCHES_TAP"),  # T2
     "dcn_fused": ("deft_tpu_torch/csrc/dcn_fused.cu",
                   "deft_tpu/ops/pallas_dcn.py:224", "LAUNCHES_FUSED"),  # T3
-    "dcn_sample_onehot": ("deft_tpu_torch/csrc/dcn_sample.cu",
+    "dcn_sample_onehot": ("deft_tpu_torch/csrc/dcn_onehot.cu",
                           "deft_tpu/ops/pallas_dcn.py:463",
                           "LAUNCHES_ONEHOT"),                             # T4
 }
@@ -310,10 +311,11 @@ def bitwise_checks(x, offsets, mask, weight, bias, shape):
 def kernel_phase():
     """Every kernel against its plain version at the 7 MOT layer shapes,
     with 'trained' offsets and with offsets past the clamp, plus bf16 inputs
-    at the largest shape; ``dcn_sample`` (the kernel of the nuScenes path)
-    also at the 7 nuScenes shapes in both regimes; the bitwise checks at
-    every float32 MOT case; times and bounds per call, and T2 with the GEMM
-    that reads its patches."""
+    at the largest shape (all but T2, whose bf16 function is T1's);
+    ``dcn_sample`` (the kernel of the nuScenes path) also at the 7 nuScenes
+    shapes in both regimes; the bitwise checks at every float32 MOT case;
+    times and bounds per call, T2 with the GEMM that reads its patches, and
+    T4's plan."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
@@ -337,8 +339,7 @@ def kernel_phase():
         if f32 and model == "mot":
             bitwise_checks(x, offsets, mask, weight, bias, (h, w, c, cout))
         for name in KERNELS:
-            if dtype == torch.bfloat16 and name not in ("dcn_sample",
-                                                        "dcn_fused"):
+            if dtype == torch.bfloat16 and name == "dcn_sample_tap":
                 continue
             if model == "nuscenes" and name != "dcn_sample":
                 continue
@@ -371,6 +372,13 @@ def kernel_phase():
                 row["with_gemm_ms"] = graph_times(
                     lambda: cuda_dcn.deform_conv_tap(x, offsets, mask, weight,
                                                      bias, RADIUS))
+            if name == "dcn_sample_onehot":
+                plan = cuda_dcn.plan_onehot(
+                    h, w, c, RADIUS, cuda_dcn._sm_count(x.device.index))
+                row["plan"] = {"TH": plan.tile_h, "TW": plan.tile_w,
+                               "Cs": plan.slice_c, "blocks": plan.blocks,
+                               "window_bytes": plan.window_bytes,
+                               "smem_bytes": plan.smem_bytes}
             if f32 and model == "mot" and name in ("dcn_sample_tap",
                                                    "dcn_fused"):
                 row["bitwise_check"] = ("equals dcn_sample on bf16-rounded x"
@@ -1077,6 +1085,9 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
             entry["product"] = "3xTF32 mma.sync.m16n8k8, split-K"
             entry["bound_ffma_ms"] = max(total["bound_bytes_ms"],
                                          total["bound_operations_ffma_ms"])
+        if name == "dcn_sample_onehot":
+            entry["design"] = ("bf16 input window in shared memory per "
+                               "(pixel tile, channel slice), plan_onehot")
         if name == "dcn_sample_tap":
             entry["store"] = "streaming (st.global.cs)"
             entry["with_gemm_ms"] = sum(

@@ -1,6 +1,6 @@
 // Modulated deformable 3x3 sampling (DCNv2 im2col) for NVIDIA Hopper, sm_90a.
 //
-// One source, three entry points, one per TPU kernel it replaces (all in
+// One source, two entry points, one per TPU kernel it replaces (both in
 // deft_tpu/ops/pallas_dcn.py):
 //
 //   dcn_sample        _cm_kernel (via deform_conv_pallas_cm / the hybrid's
@@ -13,11 +13,7 @@
 //                     sampling on x rounded to bfloat16 (the TPU kernel's
 //                     slab, pallas_dcn.py:405), float32 blend, patches in x's
 //                     dtype.
-//   dcn_sample_onehot _onehot_kernel (via deform_conv_pallas_onehot): x
-//                     rounded to bfloat16, the two horizontal bilinear
-//                     weights rounded to bfloat16 (pallas_dcn.py:494), the
-//                     vertical ones float32, float32 sums, bfloat16 patches
-//                     (:548).
+// (T4, _onehot_kernel, has its own source, dcn_onehot.cu.)
 //
 // Function: for output pixel p = (h, w) and tap k = (ky, kx) in {-1, 0, 1}^2,
 //   patches[p, k*C + c] = mask[p, k] * bilinear(x, h + ky + dy, w + kx + dx)[c]
@@ -61,17 +57,12 @@
 //     equals dcn_sample(x rounded to bf16) bit for bit in float32.
 //   * There is no offset gate and no shift loop: the TPU kernels needed those
 //     because a TPU cannot gather; the GPU gathers the four corners.
-//   * The onehot entry repeats the TPU kernel's own weight arithmetic
-//     (horizontal hat on the padded column grid, vertical hat per integer row
-//     shift) so that its bfloat16 roundings fall where the TPU kernel's do.
 // dcn_fused.cu fuses the same sampling into tensor-core GEMM tiles, so that
 // its patches never reach device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "dcn_common.cuh"
 
@@ -84,7 +75,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int WARP_ENT = 32;                  // (pixel, tap) entries a warp
 constexpr int TILE_ENT = WARPS * WARP_ENT;    // entries a block
 
-enum Mode { kPlain = 0, kTap = 1, kOnehot = 2 };
+enum Mode { kPlain = 0, kTap = 1 };
 
 // *dst = v, evict-first (st.global.cs)
 template <typename O, int V>
@@ -109,12 +100,9 @@ __global__ void __launch_bounds__(THREADS)
 dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
                   const float* __restrict__ mask, O* __restrict__ out, int H,
                   int W, int C, int radius, int slice_packs) {
-  // per warp and entry: corner index (-1 outside the image, onehot only) and
-  // weight; plain/tap fold the mask into the four weights, onehot keeps
-  // (wx0, wx1, wy0, wy1) and the mask apart
+  // per warp and entry: corner index and mask-folded weight
   __shared__ int s_idx[WARPS][WARP_ENT][4];
   __shared__ float s_w[WARPS][WARP_ENT][4];
-  __shared__ float s_m[WARPS][WARP_ENT];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -127,40 +115,8 @@ dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
   if (lane < n_here) {
     const int p = (e0 + lane) / KK;
     const int k = e0 + lane - p * KK;
-    if constexpr (MODE == kOnehot) {
-      // vertical: hat(dy - u) for the integer row shifts u = floor(dy),
-      // floor(dy) + 1 (pallas_dcn.py:498); horizontal: hat on the column
-      // grid padded by radius + 2 (:492-494), rounded to bfloat16
-      const int h = p / W;
-      const int w = p - h * W;
-      const float r = (float)radius;
-      const float dy =
-          fminf(fmaxf(offsets[(size_t)p * (2 * KK) + 2 * k], -r), r);
-      const float dx =
-          fminf(fmaxf(offsets[(size_t)p * (2 * KK) + 2 * k + 1], -r), r);
-      const int pad = radius + 2;
-      const float fy = floorf(dy);
-      const float pos = (float)(w + pad + k % 3 - 1) + dx;
-      const float px = floorf(pos);
-      float* sw = s_w[warp][lane];
-      sw[0] = round_bf16(1.0f - (pos - px));
-      sw[1] = round_bf16(1.0f - ((px + 1.0f) - pos));
-      sw[2] = fmaxf(0.0f, 1.0f - fabsf(dy - fy));
-      sw[3] = fmaxf(0.0f, 1.0f - fabsf(dy - (fy + 1.0f)));
-      s_m[warp][lane] = mask[(size_t)p * KK + k];
-      const int r0 = h + k / 3 - 1 + (int)fy;
-      const int c0 = (int)px - pad;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rr = r0 + (j >> 1);
-        const int cc = c0 + (j & 1);
-        s_idx[warp][lane][j] =
-            (rr >= 0 && rr < H && cc >= 0 && cc < W) ? rr * W + cc : -1;
-      }
-    } else {
-      bilinear_corners(offsets, mask, p, k, H, W, radius, s_idx[warp][lane],
-                       s_w[warp][lane]);
-    }
+    bilinear_corners(offsets, mask, p, k, H, W, radius, s_idx[warp][lane],
+                     s_w[warp][lane]);
   }
   __syncwarp();
 
@@ -180,41 +136,16 @@ dcn_sample_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
     const int* idx = s_idx[warp][e];
     const float* wt = s_w[warp][e];
     float acc[V];
-    if constexpr (MODE == kOnehot) {
-      // g_row = wx0 * x[row, c0] + wx1 * x[row, c0 + 1], then the vertical
-      // weights and the mask, in the TPU kernel's order
-      float g[2][V];
 #pragma unroll
-      for (int row = 0; row < 2; ++row) {
+    for (int t = 0; t < V; ++t) acc[t] = 0.0f;
 #pragma unroll
-        for (int t = 0; t < V; ++t) g[row][t] = 0.0f;
+    for (int j = 0; j < 4; ++j) {
+      const float wj = wt[j];
+      const P v = xv[(size_t)idx[j] * cv + c];   // one 16-byte load
+      float f[V];
+      pack_to_float<MODE == kTap>(v, f);
 #pragma unroll
-        for (int col = 0; col < 2; ++col) {
-          const int id = idx[2 * row + col];
-          if (id < 0) continue;
-          const float wx = wt[col];
-          const P v = xv[(size_t)id * cv + c];   // one 16-byte load
-          float f[V];
-          pack_to_float<true>(v, f);
-#pragma unroll
-          for (int t = 0; t < V; ++t) g[row][t] += wx * f[t];
-        }
-      }
-      const float wy0 = wt[2], wy1 = wt[3], m = s_m[warp][e];
-#pragma unroll
-      for (int t = 0; t < V; ++t) acc[t] = (g[0][t] * wy0 + g[1][t] * wy1) * m;
-    } else {
-#pragma unroll
-      for (int t = 0; t < V; ++t) acc[t] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float wj = wt[j];
-        const P v = xv[(size_t)idx[j] * cv + c];   // one 16-byte load
-        float f[V];
-        pack_to_float<MODE == kTap>(v, f);
-#pragma unroll
-        for (int t = 0; t < V; ++t) acc[t] += wj * f[t];
-      }
+      for (int t = 0; t < V; ++t) acc[t] += wj * f[t];
     }
     PO o;
 #pragma unroll
@@ -243,25 +174,24 @@ int launch(const void* x, const float* offsets, const float* mask, void* out,
 }
 
 // Picks 16-byte input packs where C and the pointers allow it.  The output
-// is in x's dtype, except for kOnehot, whose output is always bfloat16.
+// is in x's dtype.
 template <int MODE>
 int dispatch(const void* x, const void* offsets, const void* mask, void* out,
              int H, int W, int C, int radius, int dtype, int slice,
              void* stream) {
   if (H <= 0 || W <= 0 || C <= 0 || slice <= 0)
     return (int)cudaErrorInvalidValue;
-  if (MODE != kPlain && radius < 0) return (int)cudaErrorInvalidValue;
+  if (MODE == kTap && radius < 0) return (int)cudaErrorInvalidValue;
   const float* off = static_cast<const float*>(offsets);
   const float* msk = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
   if (dtype == 0) {
-    using O = typename std::conditional<MODE == kOnehot, BF, float>::type;
-    if (C % 4 == 0 && aligned(x, 16) && aligned(out, 4 * sizeof(O)))
-      return launch<float, O, 4, MODE>(x, off, msk, out, H, W, C, radius,
-                                       slice, s);
-    return launch<float, O, 1, MODE>(x, off, msk, out, H, W, C, radius, slice,
-                                     s);
+    if (C % 4 == 0 && aligned(x, 16) && aligned(out, 16))
+      return launch<float, float, 4, MODE>(x, off, msk, out, H, W, C, radius,
+                                           slice, s);
+    return launch<float, float, 1, MODE>(x, off, msk, out, H, W, C, radius,
+                                         slice, s);
   }
   if (dtype == 1) {
     if (C % 8 == 0 && aligned(x, 16) && aligned(out, 16))
@@ -277,9 +207,9 @@ int dispatch(const void* x, const void* offsets, const void* mask, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16 (of x).  slice: channels per block along
 // grid.y (ops/cuda_dcn.py::plan_sample; below C it must be a multiple of the
-// 8 channels of a bf16 pack).  Each returns the cudaError_t of the launch (0 on success); the kernel runs on
-// `stream` and does not synchronise.  dcn_sample_tap and dcn_sample_onehot
-// need radius >= 0.
+// 8 channels of a bf16 pack).  Each returns the cudaError_t of the launch (0
+// on success); the kernel runs on `stream` and does not synchronise.
+// dcn_sample_tap needs radius >= 0.
 extern "C" int dcn_sample(const void* x, const void* offsets, const void* mask,
                           void* out, int H, int W, int C, int radius, int dtype,
                           int slice, void* stream) {
@@ -293,12 +223,4 @@ extern "C" int dcn_sample_tap(const void* x, const void* offsets,
                               void* stream) {
   return dispatch<kTap>(x, offsets, mask, out, H, W, C, radius, dtype, slice,
                         stream);
-}
-
-extern "C" int dcn_sample_onehot(const void* x, const void* offsets,
-                                 const void* mask, void* out, int H, int W,
-                                 int C, int radius, int dtype, int slice,
-                                 void* stream) {
-  return dispatch<kOnehot>(x, offsets, mask, out, H, W, C, radius, dtype,
-                           slice, stream);
 }

@@ -45,8 +45,9 @@ On a CUDA tensor every wrapper launches its kernel (built on first use, see
 ``csrc/build.py``) or raises; on a CPU tensor it computes the ``*_reference``
 plain version of the same function.  Nothing falls back from the card to a
 plain version.  Each launch follows a plan computed here from the layer's
-shape and the card's SM count: ``plan_sample`` sizes the sampling kernels'
-(entry tile, channel slice) grid, ``plan_fused`` picks T3's block tile and
+shape and the card's SM count: ``plan_sample`` sizes T1's and T2's (entry
+tile, channel slice) grid, ``plan_onehot`` T4's (pixel tile, channel slice)
+grid and its shared-memory window, ``plan_fused`` picks T3's block tile and
 its split of the reduction, whose float32 workspace the wrapper allocates.
 """
 
@@ -64,6 +65,14 @@ KK = 9                     # taps of the 3x3 kernel
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 SAMPLE_TILE = 256          # (pixel, tap) entries per block, dcn_sample.cu
 SAMPLE_PER_SM = 4          # blocks per SM plan_sample aims at
+ONEHOT_TILES = ((16, 16), (8, 16), (8, 8), (4, 8))   # dcn_onehot.cu (TH, TW)
+ONEHOT_SLICES = (64, 32, 16, 8)                      # its channel slices
+ONEHOT_THREADS_PER_PIXEL = 3   # dcn_onehot.cu's TPP
+ONEHOT_ENTRY_BYTES = 32    # shared memory per thread (its warp's entry slots)
+ONEHOT_FILL_COST = 0.7     # a window element's time against an output's
+ONEHOT_MIN_SLICE = 32      # channels of a slice plan_onehot prefers at least
+ONEHOT_MIN_PIXELS = 64     # pixels of a tile plan_onehot prefers at least
+SMEM_PER_BLOCK = 232448    # dynamic shared memory an H100 block may use
 FUSED_BK = 32              # reduction chunk of dcn_fused.cu
 FUSED_BM = {64: 64, 128: 64, 256: 32}   # dcn_fused.cu: BN -> BM of a block
 FUSED_PER_SM = 1           # blocks per SM plan_fused aims at
@@ -78,10 +87,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {                       # library -> entry -> argtypes
     "dcn_sample": {name: [_P] * 4 + [_I] * 6 + [_P]
-                   for name in ("dcn_sample", "dcn_sample_tap",
-                                "dcn_sample_onehot")},
+                   for name in ("dcn_sample", "dcn_sample_tap")},
+    "dcn_onehot": {"dcn_sample_onehot": [_P] * 4 + [_I] * 9 + [_P]},
     "dcn_fused": {"dcn_fused": [_P] * 7 + [_I] * 9 + [_P]},
 }
+_LIBRARY = {entry: library for library, entries in _SIGNATURES.items()
+            for entry in entries}
 _libs = {}
 _lib_lock = threading.Lock()
 
@@ -107,6 +118,99 @@ def plan_sample(h: int, w: int, c: int, sms: int = SMS) -> SamplePlan:
     slice_c = c if need <= 1 else max(16, c // need // 8 * 8)
     slice_c = min(slice_c, c)
     return SamplePlan(tiles, math.ceil(c / slice_c), slice_c)
+
+
+class OnehotPlan(NamedTuple):
+    """Grid of dcn_onehot.cu: ``tiles_h`` x ``tiles_w`` pixel tiles of
+    ``tile_h`` x ``tile_w`` (``threads`` per block) by ``slices`` channel
+    slices of ``slice_c``; each block stages a bf16 window of
+    ``window_bytes`` in shared memory."""
+    tile_h: int
+    tile_w: int
+    slice_c: int
+    tiles_h: int
+    tiles_w: int
+    slices: int
+    window_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_h * self.tiles_w * self.slices
+
+    @property
+    def threads(self) -> int:
+        return ONEHOT_THREADS_PER_PIXEL * self.tile_h * self.tile_w
+
+    @property
+    def smem_bytes(self) -> int:
+        """The window plus the warps' entry slots: the dynamic shared memory
+        the wrapper launches the block with (the kernel refuses less than
+        its layout takes)."""
+        return self.window_bytes + self.threads * ONEHOT_ENTRY_BYTES
+
+
+def onehot_window(tile_h: int, tile_w: int, radius: int) -> tuple:
+    """(rows, columns) of the input a tile's samples can reach at clamp
+    ``radius``: from r + 1 before the tile to r + 1 after it (corner pairs
+    of row and column shifts in [-r - 1, r + 1])."""
+    return tile_h + 2 * radius + 3, tile_w + 2 * radius + 3
+
+
+def _onehot_plan(h, w, c, radius, tile_h, tile_w, slice_c) -> OnehotPlan:
+    rows, cols = onehot_window(tile_h, tile_w, radius)
+    return OnehotPlan(tile_h, tile_w, slice_c, math.ceil(h / tile_h),
+                      math.ceil(w / tile_w), math.ceil(c / slice_c),
+                      rows * cols * slice_c * 2)
+
+
+def onehot_busiest_sm(plan: OnehotPlan, sms: int = SMS) -> float:
+    """The work of the busiest SM when ``plan``'s blocks spread evenly over
+    ``sms``: ceil(blocks / sms) blocks, each writing TH x TW x 9 x Cs
+    outputs and filling its window at ``ONEHOT_FILL_COST`` outputs per
+    element.  That cost is measured: on an H100 at the 7 MOT layer shapes,
+    the time the window fill adds per element (full kernel less the kernel
+    without its fill) over the time the blend and store add per output
+    (full less the kernel without them) is 0.52-0.86 by layer, 0.71 over a
+    frame (``tools/ablate_onehot.py``; PERF.md).  Every DLA-34 layer's
+    blocks fit on the card at once, so the busiest SM sets the time."""
+    per_block = (plan.tile_h * plan.tile_w * KK * plan.slice_c
+                 + ONEHOT_FILL_COST * plan.window_bytes / 2)
+    return math.ceil(plan.blocks / sms) * per_block
+
+
+def plan_onehot(h: int, w: int, c: int, radius: int,
+                sms: int = SMS) -> OnehotPlan:
+    """T4's tile and channel slice.  Of the tiles of ``ONEHOT_TILES`` and
+    the slices of ``ONEHOT_SLICES`` no wider than C (rounded up to 8) whose
+    window fits a block's shared memory, it keeps in turn, each time only
+    where some plan passes: those that launch a block on every SM; those
+    whose slices hold ``ONEHOT_MIN_SLICE`` channels (or all of C), since
+    fewer lanes then share each entry's weights and their corner reads
+    collide in shared memory (16 channels cost 1.4-2x per output on the
+    card, 8 channels 2-6x; PERF.md); those whose tiles hold
+    ``ONEHOT_MIN_PIXELS`` pixels, since smaller blocks re-read a window 9x
+    their tile.  Of what is left, the one whose busiest SM does the least
+    work (``onehot_busiest_sm``); ties go to the wider slice, then the
+    larger tile.  On an H100 the picks at the 7 MOT layer shapes sum to
+    within 0.6% of the fastest plan of each layer over a frame (6% off at
+    17x30x512, whose faster plans launch fewer blocks than SMs or use 16
+    channels; PERF.md).  The window grows with the radius and the tile shrinks; raises
+    ``ValueError`` where even the smallest tile's window does not fit."""
+    _check_clamped(radius, "plan_onehot")
+    c8 = -(-c // 8) * 8
+    fits = [plan for cs in ONEHOT_SLICES if cs <= c8
+            for th, tw in ONEHOT_TILES
+            for plan in [_onehot_plan(h, w, c, radius, th, tw, cs)]
+            if plan.smem_bytes <= SMEM_PER_BLOCK]
+    if not fits:
+        raise ValueError(f"plan_onehot: radius {radius} needs a window larger "
+                         f"than a block's {SMEM_PER_BLOCK} bytes of shared "
+                         f"memory")
+    for keep in (lambda p: p.blocks >= sms,
+                 lambda p: p.slice_c >= min(ONEHOT_MIN_SLICE, c8),
+                 lambda p: p.tile_h * p.tile_w >= ONEHOT_MIN_PIXELS):
+        fits = [plan for plan in fits if keep(plan)] or fits
+    return min(fits, key=lambda plan: onehot_busiest_sm(plan, sms))
 
 
 class FusedPlan(NamedTuple):
@@ -219,8 +323,7 @@ def _on_card(name: str, *tensors) -> bool:
 
 def _launch(entry: str, out: torch.Tensor, *args) -> torch.Tensor:
     """Call a C entry point on the current stream of ``out``'s device."""
-    library = "dcn_fused" if entry == "dcn_fused" else "dcn_sample"
-    fn = _entry(library, entry)
+    fn = _entry(_LIBRARY[entry], entry)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = fn(*args, stream)
@@ -229,11 +332,10 @@ def _launch(entry: str, out: torch.Tensor, *args) -> torch.Tensor:
     return out
 
 
-def _sample_on_card(entry: str, x, offsets, mask, radius: int,
-                    out_dtype: torch.dtype) -> torch.Tensor:
+def _sample_on_card(entry: str, x, offsets, mask, radius: int) -> torch.Tensor:
     h, w, c = x.shape
     plan = plan_sample(h, w, c, _sm_count(x.device.index))
-    out = torch.empty((h * w, KK * c), dtype=out_dtype, device=x.device)
+    out = torch.empty((h * w, KK * c), dtype=x.dtype, device=x.device)
     return _launch(entry, out, x.data_ptr(), offsets.data_ptr(),
                    mask.data_ptr(), out.data_ptr(), h, w, c, int(radius),
                    _DTYPES[x.dtype], plan.slice_c)
@@ -377,7 +479,7 @@ def deform_sample(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
     _check_inputs(x, offsets, mask)
     if not _on_card("deform_sample", x, offsets, mask):
         return deform_sample_reference(x, offsets, mask, radius)
-    out = _sample_on_card("dcn_sample", x, offsets, mask, radius, x.dtype)
+    out = _sample_on_card("dcn_sample", x, offsets, mask, radius)
     LAUNCHES += 1
     return out
 
@@ -392,7 +494,7 @@ def deform_sample_tap(x: torch.Tensor, offsets: torch.Tensor,
     _check_clamped(radius, "deform_sample_tap")
     if not _on_card("deform_sample_tap", x, offsets, mask):
         return deform_sample_tap_reference(x, offsets, mask, radius)
-    out = _sample_on_card("dcn_sample_tap", x, offsets, mask, radius, x.dtype)
+    out = _sample_on_card("dcn_sample_tap", x, offsets, mask, radius)
     LAUNCHES_TAP += 1
     return out
 
@@ -400,14 +502,21 @@ def deform_sample_tap(x: torch.Tensor, offsets: torch.Tensor,
 def deform_sample_onehot(x: torch.Tensor, offsets: torch.Tensor,
                          mask: torch.Tensor, radius: int) -> torch.Tensor:
     """T4's sampling (``deform_conv_pallas_onehot``, pallas_dcn.py:511):
-    bfloat16 patches ``[H*W, 9*C]`` (``dcn_sample_onehot``)."""
+    bfloat16 patches ``[H*W, 9*C]`` (``dcn_sample_onehot``, on the tile
+    and slice of ``plan_onehot``; raises ``ValueError`` where the radius
+    leaves no window that fits)."""
     global LAUNCHES_ONEHOT
     _check_inputs(x, offsets, mask)
     _check_clamped(radius, "deform_sample_onehot")
     if not _on_card("deform_sample_onehot", x, offsets, mask):
         return deform_sample_onehot_reference(x, offsets, mask, radius)
-    out = _sample_on_card("dcn_sample_onehot", x, offsets, mask, radius,
-                          torch.bfloat16)
+    h, w, c = x.shape
+    plan = plan_onehot(h, w, c, radius, _sm_count(x.device.index))
+    out = torch.empty((h * w, KK * c), dtype=torch.bfloat16, device=x.device)
+    _launch("dcn_sample_onehot", out, x.data_ptr(), offsets.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), h, w, c, int(radius),
+            _DTYPES[x.dtype], plan.tile_h, plan.tile_w, plan.slice_c,
+            plan.smem_bytes)
     LAUNCHES_ONEHOT += 1
     return out
 

@@ -61,11 +61,11 @@ VARIANTS = {"full": (), "no_mma": ("ABLATE_NO_MMA",),
 BUILD_DIR = build.BUILD_DIR.parent / "ablate"
 
 
-def ablatable(source: str) -> str:
+def ablatable(source: str, phases: dict = PHASES) -> str:
     """``source`` with an ``#ifdef <macro> return; #endif`` at the top of
-    each phase lambda of ``PHASES``; raises unless each lambda appears
-    exactly once."""
-    for name, macro in PHASES.items():
+    each phase lambda of ``phases`` (name -> macro); raises unless each
+    lambda appears exactly once."""
+    for name, macro in phases.items():
         pattern = re.compile(r"\n( *)auto " + name + r" = \[&\]\([^{]*\) \{\n")
         hits = list(pattern.finditer(source))
         if len(hits) != 1:
@@ -77,25 +77,27 @@ def ablatable(source: str) -> str:
     return source
 
 
-def build_all(sources: dict, variants) -> dict:
-    """Compile the ``variants`` of each {tag: source}, the source's own
+def build_all(sources: dict, variants, phases: dict = PHASES,
+              macros: dict = VARIANTS) -> dict:
+    """Compile the ``variants`` (name -> macros defined, ``macros``) of each
+    {tag: source}, its ``phases`` made ablatable, the source's own
     directory on the include path, one nvcc each, all at once; return
     (tag, variant) -> library path."""
     builds = []
     for tag, source in sources.items():
         out_dir = BUILD_DIR / tag
         out_dir.mkdir(parents=True, exist_ok=True)
-        patched = out_dir / "dcn_fused_ablate.cu"
-        patched.write_text(ablatable(source.read_text()))
+        patched = out_dir / f"{source.stem}_ablate.cu"
+        patched.write_text(ablatable(source.read_text(), phases))
         flags = list(build.NVCC_FLAGS)
         flags[flags.index("-I") + 1] = str(source.parent)
         builds += [(tag, variant, patched, flags) for variant in variants]
 
     def one(job):
         tag, variant, patched, flags = job
-        lib = patched.parent / f"lib{variant}.so"
+        lib = patched.with_name(f"lib{patched.stem}_{variant}.so")
         cmd = [build._nvcc(), *flags,
-               *(f"-D{m}" for m in VARIANTS[variant]), "-o", str(lib),
+               *(f"-D{m}" for m in macros[variant]), "-o", str(lib),
                str(patched)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

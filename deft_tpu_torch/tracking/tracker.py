@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deft_tpu_torch.models.factory import resolve_device
 from deft_tpu_torch.tracking import matching
 from deft_tpu_torch.tracking.basetrack import BaseTrack, IdAllocator, TrackState
 from deft_tpu_torch.tracking.kalman import KalmanFilter
@@ -68,13 +69,15 @@ class DeviceFeatureRecorder:
 
     ``similarity_fn(window_embeds [W,M,E], counts [W], cur [M,E], n_cur)``
     takes tensors on ``device`` and must return a [W, M, M+1] tensor
-    (AFE.window_similarity); it is invoked once per frame.
+    (AFE.window_similarity); it is invoked once per frame.  ``device`` is
+    the card unless the caller asks for the CPU; without a card, the
+    default raises.
     """
 
     def __init__(self, dataset: str, max_object: int, embed_dim: int,
                  similarity_fn: Callable, window: int = MAX_RECORD_FRAME,
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device="cuda"):
+        self.device = resolve_device(device)
         self.dataset = dataset
         self.window = window
         self.max_object = max_object
@@ -450,13 +453,15 @@ class STrack(BaseTrack):
 
 class Tracker:
     """Per-sequence online tracker (tracker.py:631-1056).  nuScenes runs one
-    per class, each with the LSTM motion model."""
+    per class, each with the LSTM motion model.  Its embedding ring (and the
+    LSTM it builds) live on ``device``: the card unless the caller asks for
+    the CPU."""
 
     def __init__(self, dataset: str, max_object: int, embed_dim: int,
                  similarity_fn: Callable, use_lstm: bool = False,
                  motion: Optional[LSTMMotion] = None,
                  frame_rate: int = 10, track_buffer: int = 30,
-                 ids: Optional[IdAllocator] = None, device="cpu"):
+                 ids: Optional[IdAllocator] = None, device="cuda"):
         if dataset == "nuscenes" and not use_lstm:
             # the 3-D gate measures [h, w, l, x, y, z, rot] boxes, which the
             # Kalman state does not hold (the JAX package fails there too)

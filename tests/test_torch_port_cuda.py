@@ -89,19 +89,68 @@ def test_dcn_sample_tap_is_plain_sampling_of_rounded_x(cuda_device, h, w, c):
     assert torch.equal(tap, plain)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
-                                   (34, 60, 256)])
-def test_dcn_sample_onehot_matches_plain(cuda_device, h, w, c, dtype):
-    """T4's kernel: bf16 patches within one bf16 step of max|patch|."""
-    x, offs, mask = _inputs(h, w, c, 8, cuda_device, dtype)
+def _onehot_matches_plain(x, offs, mask, radius):
+    """T4 through its wrapper: one launch, bf16 patches within one bf16
+    step of max|patch| of the plain version."""
+    h, w, c = x.shape
     before = cuda_dcn.LAUNCHES_ONEHOT
-    got = cuda_dcn.deform_sample_onehot(x, offs, mask, 4)
+    got = cuda_dcn.deform_sample_onehot(x, offs, mask, radius)
     torch.cuda.synchronize()
     assert cuda_dcn.LAUNCHES_ONEHOT == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (h * w, 9 * c)
-    ref = cuda_dcn.deform_sample_onehot_reference(x, offs, mask, 4).float()
+    ref = cuda_dcn.deform_sample_onehot_reference(x, offs, mask,
+                                                  radius).float()
     assert (got.float() - ref).abs().max() <= 2.0 ** -7 * ref.abs().max()
+
+
+@pytest.mark.parametrize("regime", ["uniform6", "trained"])
+@pytest.mark.parametrize("radius", [0, 1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
+                                   # the DLA-34 layers of a 544x960 frame
+                                   (136, 240, 64), (68, 120, 128),
+                                   (34, 60, 256), (17, 30, 512)])
+def test_dcn_sample_onehot_matches_plain(cuda_device, h, w, c, dtype, radius,
+                                         regime):
+    """T4's kernel on ``plan_onehot``'s tile and slice, ragged tiles, C = 3
+    and C = 40 (a ragged slice) included, with offsets past the clamp
+    (uniform6) and within +-2 px (trained): bf16 patches within one bf16
+    step of max|patch|."""
+    x, offs, mask = _inputs(h, w, c, 8, cuda_device, dtype)
+    if regime == "trained":
+        offs = (offs / 3.0).clamp(-2.0, 2.0)
+    _onehot_matches_plain(x, offs, mask, radius)
+
+
+def test_dcn_sample_onehot_smallest_tile(cuda_device):
+    """Radius 55 leaves only the smallest tile and slice a window that fits
+    a block's shared memory; 56 leaves none, and the wrapper raises."""
+    h, w, c = 34, 60, 256
+    plan = cuda_dcn.plan_onehot(h, w, c, 55)
+    assert ((plan.tile_h, plan.tile_w) == cuda_dcn.ONEHOT_TILES[-1]
+            and plan.slice_c == cuda_dcn.ONEHOT_SLICES[-1])
+    x, offs, mask = _inputs(h, w, c, 12, cuda_device, torch.float32)
+    _onehot_matches_plain(x, offs * 10.0, mask, 55)
+    with pytest.raises(ValueError):
+        cuda_dcn.deform_sample_onehot(x, offs, mask, 56)
+
+
+def test_dcn_sample_onehot_refuses_short_shared_memory(cuda_device):
+    """The C entry takes the block's shared memory from the plan and refuses
+    less than its window and entry slots take: the plan's own size
+    launches, one byte less does not."""
+    h, w, c = 34, 60, 256
+    x, offs, mask = _inputs(h, w, c, 15, cuda_device, torch.float32)
+    plan = cuda_dcn.plan_onehot(h, w, c, 4)
+    out = torch.empty((h * w, 9 * c), dtype=torch.bfloat16, device=x.device)
+    fn = cuda_dcn._entry("dcn_onehot", "dcn_sample_onehot")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for smem, ok in ((plan.smem_bytes, True), (plan.smem_bytes - 1, False)):
+        err = fn(x.data_ptr(), offs.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), h, w, c, 4, 0, plan.tile_h, plan.tile_w,
+                 plan.slice_c, smem, stream)
+        assert (err == 0) == ok, (smem, err)
+    torch.cuda.synchronize()
 
 
 def _weights(c, cout, seed, dev):
@@ -247,3 +296,15 @@ def test_run_multi_on_card_matches_cpu(cuda_device):
                 for a, b in zip(g, w):
                     np.testing.assert_allclose(a[1], b[1], rtol=0, atol=1e-2)
     assert agree >= total // 2, f"{agree} of {total} cameras agree"
+
+
+def test_tracker_defaults_to_the_card(cuda_device):
+    """``Tracker`` and ``DeviceFeatureRecorder`` built with no device keep
+    their ring (and the tracker its LSTM) on the card."""
+    from deft_tpu_torch.tracking.tracker import DeviceFeatureRecorder, Tracker
+
+    tracker = Tracker("nuscenes", 8, 16, similarity_fn=None, use_lstm=True)
+    assert tracker.recorder.embeds.device.type == "cuda"
+    assert next(tracker.motion.model.parameters()).device.type == "cuda"
+    recorder = DeviceFeatureRecorder("mot", 8, 16, None)
+    assert recorder.embeds.device.type == "cuda"

@@ -291,7 +291,7 @@ def tracker_pair(dataset="nuscenes", shared=False):
     jt = [JaxTracker(dataset, 8, E, jax_similarity, use_lstm=True, motion=jm,
                      ids=j_ids) for _ in range(n)]
     pt = [Tracker(dataset, 8, E, torch_similarity, use_lstm=True, motion=pm,
-                  ids=p_ids) for _ in range(n)]
+                  ids=p_ids, device="cpu") for _ in range(n)]
     return jt, pt
 
 
@@ -372,7 +372,8 @@ def test_tracker_2d_lstm_matches_jax():
 
 def test_nuscenes_tracker_needs_lstm():
     with pytest.raises(ValueError):
-        Tracker("nuscenes", 8, E, torch_similarity, use_lstm=False)
+        Tracker("nuscenes", 8, E, torch_similarity, use_lstm=False,
+                device="cpu")
 
 
 # ---- Detector.run_multi against the JAX package's ----------------------------

@@ -1,7 +1,7 @@
 """The CUDA kernels' plans and product precision, on the CPU.
 
 ``dcn_fused.cu`` (T3) multiplies on the tensor cores in 3xTF32 and splits
-the reduction over blocks; ``dcn_sample.cu`` (T1, T2, T4) slices channels
+the reduction over blocks; ``dcn_sample.cu`` (T1, T2) slices channels
 over blocks.  Neither kernel runs here, so this file holds what decides
 their results and their grids in plain code:
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from deft_tpu.tracking.tracker import Tracker as JaxTracker
-from deft_tpu_torch.tracking.tracker import Tracker
+from deft_tpu_torch.tracking.tracker import DeviceFeatureRecorder, Tracker
 
 M, E = 8, 16
 FRAMES = 24
@@ -110,10 +110,28 @@ def test_lstm_and_nuscenes_wait_for_later_slices():
     (tests/test_torch_port_nuscenes.py holds them to the JAX package); what
     stays refused is a nuScenes tracker on the Kalman filter, whose state
     holds no 3-D box to gate with."""
-    assert Tracker("mot", M, E, similarity_fn=None, use_lstm=True).motion
-    assert Tracker("nuscenes", M, E, similarity_fn=None, use_lstm=True).motion
+    assert Tracker("mot", M, E, similarity_fn=None, use_lstm=True,
+                   device="cpu").motion
+    assert Tracker("nuscenes", M, E, similarity_fn=None, use_lstm=True,
+                   device="cpu").motion
     with pytest.raises(ValueError):
-        Tracker("nuscenes", M, E, similarity_fn=None)
+        Tracker("nuscenes", M, E, similarity_fn=None, device="cpu")
+
+
+@pytest.mark.parametrize("use_lstm", [False, True])
+def test_tracker_defaults_to_the_card(use_lstm):
+    """With no ``device``, the tracker, its embedding ring and the LSTM it
+    builds go to the card, as every other entry point of the port does;
+    without a card that raises and names ``device='cpu'``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    for build in (lambda: Tracker("mot", M, E, similarity_fn=None,
+                                  use_lstm=use_lstm),
+                  lambda: DeviceFeatureRecorder("mot", M, E, None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert Tracker("mot", M, E, similarity_fn=None, use_lstm=use_lstm,
+                   device="cpu").recorder.embeds.device.type == "cpu"
 
 
 def _frame_program_sims(frames, window=50, sim_window=12):
