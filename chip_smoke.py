@@ -6,11 +6,12 @@
 Builds the port's CUDA kernels from ``deft_tpu_torch/csrc`` into
 ``build/kernels/`` (one nvcc per source, all at once), holds each of the four
 kernels against its plain PyTorch version at the 7 DLA-34 DCNv2 layer shapes
-of a 544x960 frame, in two offset regimes, and ``dcn_sample`` also at the 7
-shapes of a 448x800 nuScenes camera, and times kernel, plain version and a
-library yardstick beside a bound.  Then it drives the main paths at full
-width (DLA-34 with DCNv2 neck, K=100, max_object=100, 50-slot rings) with
-seeded random weights:
+of a 544x960 frame, in two offset regimes, ``dcn_sample`` also at the 7
+shapes of a 448x800 nuScenes camera and ``dcn_sample`` and
+``dcn_sample_tap`` at the 7 shapes of a 384x1280 KITTI frame, and times
+kernel, plain version and a library yardstick beside a bound.  Then it
+drives the main paths at full width (DLA-34 with DCNv2 neck, K=100,
+max_object=100, 50-slot rings) with seeded random weights:
 
 * slice 1, MOT17 tracking through ``Detector.run`` (544x960,
   ``dcn_impl="hybrid"``, every DCNv2 layer through ``dcn_sample``) on 30
@@ -24,10 +25,20 @@ seeded random weights:
   3-D heads, 704-wide AFE, seven per-class trackers with the LSTM motion
   model) on 10 samples of a synthetic six-camera rig of 900x1600 frames,
   each sample's cameras as one batch;
+* slice 6, KITTI 2-D vehicle tracking (``kitti_config()``: 384x1280, three
+  classes, cars tracked) on 30 synthetic 375x1242 frames of the numpy
+  generator ``deft_tpu_torch/data/synthetic_kitti.py``, through
+  ``track.py::track_videos_detector`` -> ``Detector.run`` (``dcn_impl=
+  "hybrid"``) and through the ``PipelinedRunner`` at chunk 1 and chunk 4
+  (``dcn_impl="pallas"``), each path's tracks written as KITTI txt;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
 (and, on nuScenes, that the LSTM stepped tracks).
+After slice 1 the seeded MOT weights go through a reference checkpoint
+file (``{"epoch", "state_dict"}`` under ``module.`` keys, in ``build/``) and
+``cfg.load_model``: every key loads, and one frame's detections equal those
+of the weights in memory bit for bit.
 The kernel phase also checks that ``dcn_sample_tap`` on x equals
 ``dcn_sample`` on x rounded to bf16 bit for bit, that ``dcn_fused`` (split-K,
 no atomics) gives the same bits on two calls, times ``dcn_sample_tap``
@@ -48,6 +59,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -58,15 +70,22 @@ import numpy as np
 import torch
 
 import deft_tpu_torch
-from deft_tpu_torch.config import mot_config, nuscenes_config
-from deft_tpu_torch.csrc.build import build_all
+from deft_tpu_torch.config import kitti_config, mot_config, nuscenes_config
+from deft_tpu_torch.csrc.build import BUILD_DIR, build_all
+from deft_tpu_torch.data.synthetic_kitti import make_sequence
 from deft_tpu_torch.data.synthetic_nuscenes import make_scene
 from deft_tpu_torch.inference.detector import Detector
 from deft_tpu_torch.inference.runner import PipelinedRunner
 from deft_tpu_torch.models.dcn import DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
-from deft_tpu_torch.track import nuscenes_submission, track_nuscenes
+from deft_tpu_torch.track import (
+    nuscenes_submission,
+    save_kitti_results,
+    track_nuscenes,
+    tracks_to_results,
+    track_videos_detector,
+)
 from deft_tpu_torch.tracking import matching, motion_lstm
 from deft_tpu_torch.tracking.basetrack import IdAllocator
 
@@ -99,6 +118,18 @@ NUSCENES_LAYERS = [
 ]
 NUSCENES_SAMPLES = 10
 CAMERAS = 6
+# the same layers of a 384x1280 KITTI frame
+KITTI_LAYERS = [
+    (96, 320, 64, 64, 5),
+    (48, 160, 128, 64, 4),
+    (48, 160, 128, 128, 2),
+    (24, 80, 256, 128, 2),
+    (24, 80, 256, 256, 1),
+    (24, 80, 256, 64, 1),
+    (12, 40, 512, 256, 1),
+]
+KITTI_SIZE = (375, 1242)       # KITTI image_02 frames
+CAR = 2                        # KITTI's tracked class (1-based)
 # kernel -> (source, TPU kernel it replaces, launch counter in cuda_dcn)
 KERNELS = {
     "dcn_sample": ("deft_tpu_torch/csrc/dcn_sample.cu",
@@ -313,17 +344,20 @@ def kernel_phase():
     with 'trained' offsets and with offsets past the clamp, plus bf16 inputs
     at the largest shape (all but T2, whose bf16 function is T1's);
     ``dcn_sample`` (the kernel of the nuScenes path) also at the 7 nuScenes
-    shapes in both regimes; the bitwise checks at every float32 MOT case;
-    times and bounds per call, T2 with the GEMM that reads its patches, and
-    T4's plan."""
+    shapes, and ``dcn_sample`` and ``dcn_sample_tap`` (the KITTI paths') at
+    the 7 KITTI shapes, in both regimes; the bitwise checks at every float32
+    MOT case; times and bounds per call, T2 with the GEMM that reads its
+    patches, and each kernel's plan."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
     cases = [(shape, "trained", torch.float32, "mot") for shape in LAYERS]
     cases += [(shape, "uniform6", torch.float32, "mot") for shape in LAYERS]
     cases += [(LAYERS[0], "trained", torch.bfloat16, "mot")]
-    cases += [(shape, regime, torch.float32, "nuscenes")
-              for regime in ("trained", "uniform6") for shape in NUSCENES_LAYERS]
+    cases += [(shape, regime, torch.float32, model)
+              for model, layers in (("nuscenes", NUSCENES_LAYERS),
+                                    ("kitti", KITTI_LAYERS))
+              for regime in ("trained", "uniform6") for shape in layers]
     for (h, w, c, cout, count), regime, dtype, model in cases:
         x = torch.from_numpy(rng.normal(0, 1, (h, w, c)).astype(np.float32)
                              ).to(dev, dtype)
@@ -342,6 +376,9 @@ def kernel_phase():
             if dtype == torch.bfloat16 and name == "dcn_sample_tap":
                 continue
             if model == "nuscenes" and name != "dcn_sample":
+                continue
+            if model == "kitti" and name not in ("dcn_sample",
+                                                 "dcn_sample_tap"):
                 continue
             kernel, plain, library, tol_rel, (t_bytes, t_ffma, t_ops) = (
                 kernel_calls(name, x, offsets, mask, weight, bias))
@@ -372,6 +409,12 @@ def kernel_phase():
                 row["with_gemm_ms"] = graph_times(
                     lambda: cuda_dcn.deform_conv_tap(x, offsets, mask, weight,
                                                      bias, RADIUS))
+            if name in ("dcn_sample", "dcn_sample_tap"):
+                plan = cuda_dcn.plan_sample(
+                    h, w, c, cuda_dcn._sm_count(x.device.index))
+                row["plan"] = {"tiles": plan.tiles, "slices": plan.slices,
+                               "slice_c": plan.slice_c,
+                               "blocks": plan.blocks}
             if name == "dcn_sample_onehot":
                 plan = cuda_dcn.plan_onehot(
                     h, w, c, RADIUS, cuda_dcn._sm_count(x.device.index))
@@ -465,6 +508,26 @@ def raise_heatmap(model, image, top_fraction=0.01):
 
 
 @torch.no_grad()
+def raise_class_heatmaps(model, image, top_fraction=0.01):
+    """``raise_heatmap`` for a head of several classes: the seeded head's
+    logits spread by ~1e-6 about its -4.6 prior bias, below float32's
+    resolution at 4.6, so the spread is read with the bias at 0.  Then
+    ~``top_fraction`` of this image's pixels score above 0.5 in each class,
+    and the box head's bias is set to a car's size in output cells."""
+    out = model.hm[-1]
+    out.bias.zero_()
+    outputs, _ = model(image)
+    z = outputs["hm"]
+    gain = 2.0 / z.std().item()
+    thr = torch.quantile(z.reshape(-1, z.shape[-1]), 1.0 - top_fraction,
+                         dim=0)
+    out.weight.mul_(gain)
+    out.bias.copy_(-thr * gain)
+    # random box heads give boxes of zero size: a car's 48x32 input pixels
+    model.wh[-1].bias.copy_(torch.tensor([12.0, 8.0]))
+
+
+@torch.no_grad()
 def reference_check(det, cfg):
     """The card's forward vs the same weights on the CPU at a small input:
     every head map and feature map within 1e-3 * its max (cuDNN and the CPU
@@ -488,9 +551,10 @@ def reference_check(det, cfg):
     return worst
 
 
-def prepared_detector(cfg, frames, device, layers):
+def prepared_detector(cfg, frames, device, layers, heatmap=raise_heatmap):
     """A Detector with seeded weights, its offset convs randomized and its
-    heatmap raised on the first frame; checks the DCNv2 layer shapes."""
+    heatmap raised on the first frame by ``heatmap``; checks the DCNv2
+    layer shapes."""
     gen = torch.Generator().manual_seed(SEED)
     det = Detector(cfg, device=device)
     model = det.model
@@ -500,7 +564,7 @@ def prepared_detector(cfg, frames, device, layers):
     expected = Counter({l[:4]: l[4] for l in layers})
     if shapes != expected or n_dcn != sum(expected.values()):
         raise AssertionError(f"DCN layer shapes {dict(shapes)} != {dict(expected)}")
-    raise_heatmap(model, first)
+    heatmap(model, first)
     return det, n_dcn, offset_q
 
 
@@ -514,6 +578,29 @@ def check_tracks(seq, min_dets):
     if min(n_dets) < min_dets:
         raise AssertionError(f"too few detections per frame: {n_dets}")
     return n_dets
+
+
+def stage_times(det, frames, sync) -> dict:
+    """Where a steady ``Detector.run`` frame's time goes: the median ms of
+    each stage over ``frames``, each stage ended by ``sync``."""
+    stages = {"pre_process": [], "detect": [], "post_process": [],
+              "track": []}
+    for frame in frames:
+        t = [time.perf_counter()]
+        images, meta = det.pre_process(frame)
+        sync()
+        t.append(time.perf_counter())
+        dets, emb = det.process(images)
+        sync()
+        t.append(time.perf_counter())
+        results = det.post_process(dets, meta)
+        t.append(time.perf_counter())
+        det._track(results, emb[0][: len(results)], None)
+        sync()
+        t.append(time.perf_counter())
+        for name, a, b in zip(stages, t[:-1], t[1:]):
+            stages[name].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in stages.items()}
 
 
 def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
@@ -550,25 +637,7 @@ def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
     if not torch.isfinite(det.tracker.recorder.embeds).all():
         raise AssertionError("non-finite embeddings in the ring")
     n_dets = check_tracks(seq, min_dets)
-
-    # where a steady frame's time goes, each stage ended by a synchronize
-    stages = {"pre_process": [], "detect": [], "post_process": [],
-              "track": []}
-    for frame in frames[:5]:
-        t = [time.perf_counter()]
-        images, meta = det.pre_process(frame)
-        sync()
-        t.append(time.perf_counter())
-        dets, emb = det.process(images)
-        sync()
-        t.append(time.perf_counter())
-        results = det.post_process(dets, meta)
-        t.append(time.perf_counter())
-        det.tracker.update(results, emb[0][: len(results)])
-        sync()
-        t.append(time.perf_counter())
-        for name, a, b in zip(stages, t[:-1], t[1:]):
-            stages[name].append((b - a) * 1e3)
+    stages = stage_times(det, frames[:5], sync)
 
     row = {"phase": "slice", "device": str(det.device),
            "config": f"mot_config dla_34 {cfg.dla_node} dcn_impl="
@@ -583,8 +652,7 @@ def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
            "peak_memory_bytes": peak, "resident_at_start_bytes": resident,
            "offset_abs_q01_q50_q99": offset_q,
            "card_vs_cpu_max_rel_err": ref_rel,
-           "stage_ms_median": {k: statistics.median(v)
-                               for k, v in stages.items()}}
+           "stage_ms_median": stages}
     emit(row)
     return count["dcn_sample"], det, row["ms_per_frame_median"]
 
@@ -593,10 +661,12 @@ def slice_phase(cfg, frames, device="cuda", layers=LAYERS, min_dets=20):
 # --chunk-batched
 RUNS = (("test.py", 1, False), ("bench.py", CHUNK, False),
         ("bench.py --chunk-batched", CHUNK, True))
+CONFIG_NAMES = {"mot": "mot_config", "kitti_tracking": "kitti_config"}
 
 
 @torch.no_grad()
-def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
+def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20,
+                 runs=RUNS, phase="runner", heatmap=raise_heatmap):
     """Slice 2's main path: ``mot_config(dcn_impl="pallas")`` through the
     ``PipelinedRunner`` of test.py (chunk 1, depth 3), then of bench.py
     (chunk 4: ``frame_chunk``, and ``frame_chunk_batched`` under its
@@ -611,15 +681,17 @@ def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
     picks other algorithms for a batch of 4, whose last-bit differences T2's
     bf16 rounding of each DCN input turns into bf16 steps, and the random
     weights' heatmap gain amplifies those into other detections
-    (PERF.md, PR 2).  Returns ({run: row}, the chunk-1 runner); ``cfg``,
-    ``device``, ``layers`` and ``min_dets`` exist for a rehearsal on the
-    CPU."""
+    (PERF.md §6).  Returns ({run: row}, {run: runner}, {run: per-frame
+    track lists}).  ``cfg``, ``runs`` and ``heatmap`` give slice 6's KITTI
+    runs, under ``phase``; ``device``, ``layers`` and ``min_dets`` exist for
+    a rehearsal on the CPU."""
     cfg = cfg or mot_config(dcn_impl="pallas")
-    det, n_dcn, offset_q = prepared_detector(cfg, frames, device, layers)
+    det, n_dcn, offset_q = prepared_detector(cfg, frames, device, layers,
+                                             heatmap)
     on_card = det.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else lambda: None
-    rows, tracks, runners = {}, {}, {}
-    for run, chunk, batched in RUNS:
+    rows, tracks, runners, seqs = {}, {}, {}, {}
+    for run, chunk, batched in runs:
         det.cfg = cfg.replace(chunk_batched=batched)
         runner = PipelinedRunner(det, depth=3, chunk=chunk)
         runner.track_sequence(frames[: 2 * chunk])
@@ -648,8 +720,9 @@ def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
             raise AssertionError(f"{run}: non-finite embeddings in the ring")
         n_dets = check_tracks(seq, min_dets)
         rows[run] = {
-            "phase": "runner", "run": run, "device": str(det.device),
-            "config": f"mot_config dla_34 {cfg.dla_node} dcn_impl="
+            "phase": phase, "run": run, "device": str(det.device),
+            "config": f"{CONFIG_NAMES[cfg.dataset]} dla_34 {cfg.dla_node} "
+                      f"dcn_impl="
                       f"{cfg.dcn_impl} {cfg.input_h}x{cfg.input_w} "
                       f"K={cfg.K} max_object={cfg.max_object} sim_window="
                       f"{runner.sim_window}",
@@ -668,8 +741,9 @@ def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
         # its detections)
         tracks[run] = [{t.track_id: t.tlbr for t in online} for online in seq]
         runners[run] = runner
+        seqs[run] = seq
     base = tracks["test.py"]
-    for run, _, batched in RUNS[1:]:
+    for run, _, batched in runs[1:]:
         same = [sorted(a) == sorted(b) for a, b in zip(base, tracks[run])]
         box_diff = max((float(np.abs(a[i] - b[i]).max())
                         for a, b in zip(base, tracks[run]) for i in a if i in b),
@@ -685,7 +759,7 @@ def runner_phase(frames, cfg=None, device="cuda", layers=LAYERS, min_dets=20):
     for row in rows.values():
         emit(row)
     det.cfg = cfg
-    return rows, runners["test.py"]
+    return rows, runners, seqs
 
 
 @torch.no_grad()
@@ -743,12 +817,13 @@ def runner_profile_phase(runner, frames, ms_per_frame):
 
 
 @torch.no_grad()
-def profile_phase(det, frames, ms_per_frame):
+def profile_phase(det, frames, ms_per_frame, phase="profile"):
     """Where a frame's device time goes: CUDA-event times of the network
     forward, ``detect`` and the 50-slot window similarity, then
     ``torch.profiler`` over 3 more frames of ``Detector.run`` for the kernel
     time per frame by name.  The busy share divides that kernel time by the
-    slice phase's (unprofiled) median ms/frame."""
+    (unprofiled) median ms/frame of the phase that drove ``det``, the slice
+    phase's or, under ``phase="kitti_profile"``, the KITTI phase's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -756,7 +831,7 @@ def profile_phase(det, frames, ms_per_frame):
     rec = det.tracker.recorder
     counts = torch.as_tensor(rec.counts, device=det.device)
     cur = rec.embeds[0].clone()
-    row = {"phase": "profile",
+    row = {"phase": phase,
            "forward_ms": cuda_times(lambda: det.model(images)),
            "detect_ms": cuda_times(lambda: det.model.detect(images, k=det.cfg.K)),
            "window_similarity_ms": cuda_times(
@@ -1027,6 +1102,163 @@ def profile_samples(det, scene, ms_per_sample):
                 [round(t, 4), c, name[:90]] for t, c, name in kernels[:12]]}
 
 
+@torch.no_grad()
+def checkpoint_phase(det, frame, out_dir=BUILD_DIR.parent / "checkpoint"):
+    """The detector's weights through a reference checkpoint file: its
+    ``state_dict`` under ``module.`` keys in ``{"epoch", "state_dict"}``,
+    loaded by a second ``Detector`` through ``cfg.load_model``.  Every key
+    must load (none kept at its seeded value, none dropped) and one frame's
+    detections and embeddings must equal those of the weights in memory bit
+    for bit."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "model_mot.pth"
+    torch.save({"epoch": 1, "state_dict": {
+        "module." + k: v.cpu() for k, v in det.model.state_dict().items()}},
+        path)
+    loaded = Detector(det.cfg.replace(load_model=str(path)),
+                      device=det.device)
+    report = loaded.load_report
+    if report.kept or report.dropped:
+        raise AssertionError(f"checkpoint keys kept {report.kept}, dropped "
+                             f"{report.dropped}")
+    images, meta = det.pre_process(frame)
+    want, want_emb = det.process(images)
+    got, got_emb = loaded.process(images)
+    if not (all(np.array_equal(got[k], want[k]) for k in want)
+            and torch.equal(got_emb, want_emb)):
+        raise AssertionError("detections through the checkpoint differ from "
+                             "those of the weights in memory")
+    row = {"phase": "checkpoint", "device": str(det.device),
+           "file_bytes": path.stat().st_size,
+           "keys_loaded": len(report.loaded), "keys_kept": 0,
+           "keys_dropped": 0, "detections_bit_identical": True,
+           "detections_above_threshold": len(det.post_process(want, meta))}
+    emit(row)
+    return row
+
+
+def check_kitti_results(results, height, width, n_frames, out_dir):
+    """Every item a Car with a finite box of positive size that overlaps
+    the frame; the KITTI txt that ``save_kitti_results`` writes has 18
+    fields per line, class Car and frames in range.  Returns (the txt's
+    path, its lines)."""
+    for items in results.values():
+        for it in items:
+            x1, y1, x2, y2 = (float(v) for v in it["bbox"])
+            if not (it["class"] == CAR and np.isfinite([x1, y1, x2, y2]).all()
+                    and x1 < x2 and y1 < y2 and x1 < width and x2 > 0
+                    and y1 < height and y2 > 0):
+                raise AssertionError(f"bad KITTI item {it}")
+    videos = [{"id": 1, "file_name": "0000"}]
+    infos = {1: [{"id": i + 1, "frame_id": i + 1} for i in range(n_frames)]}
+    path = os.path.join(save_kitti_results(results, videos, infos,
+                                           str(out_dir)), "0000.txt")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if len(lines) != sum(len(v) for v in results.values()):
+        raise AssertionError(f"{len(lines)} lines in {path}")
+    for line in lines:
+        parts = line.split()
+        if (len(parts) != 18 or parts[2] != "Car"
+                or not 0 <= int(parts[0]) < n_frames):
+            raise AssertionError(f"malformed KITTI line {line!r}")
+    return path, len(lines)
+
+
+@torch.no_grad()
+def kitti_phase(cfg=None, device="cuda", layers=KITTI_LAYERS,
+                size=KITTI_SIZE, n_frames=FRAMES, min_dets=5,
+                out_dir=BUILD_DIR.parent / "kitti"):
+    """Slice 6's main path: ``kitti_config()`` at full width with seeded
+    random weights (offsets spread about +-2 px, the heatmap raised in
+    every class, so that Pedestrians and Cyclists reach the car filter) on
+    ``n_frames`` frames of the numpy KITTI scene.  First through
+    ``track_videos_detector`` -> ``Detector.run`` (``dcn_impl="hybrid"``):
+    every DCNv2 layer of every frame must launch ``dcn_sample``, and the car
+    filter must drop detections.  Then through the runner
+    (``dcn_impl="pallas"``) at chunk 1 and chunk 4 (``runner_phase``: 16
+    ``dcn_sample_tap`` launches per dispatched frame, chunk 4 equal to chunk
+    1).  Each path's items must be cars with boxes that overlap the frame,
+    and their KITTI txt well formed.  Returns the launches of
+    ``Detector.run`` and of the runner's chunk-1 and chunk-4 runs.  ``cfg``,
+    ``device``, ``layers``, ``size``, ``n_frames`` and ``min_dets`` exist
+    for a rehearsal on the CPU."""
+    cfg = cfg or kitti_config()
+    frames, _ = make_sequence(n_frames=n_frames, height=size[0],
+                              width=size[1], seed=SEED + 4)
+    det, n_dcn, offset_q = prepared_detector(cfg, frames, device, layers,
+                                             raise_class_heatmaps)
+    on_card = det.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else lambda: None
+    classes, run_ms = [], []
+    post_process = det.post_process
+
+    def counted_post_process(dets, meta):
+        results = post_process(dets, meta)
+        classes.append([d["class"] for d in results])
+        return results
+
+    det.post_process = counted_post_process
+    det.run = timed(det.run, sync, run_ms)
+    sync()
+    reset_launches()
+    results = track_videos_detector(
+        det, [(1, [(i + 1, f) for i, f in enumerate(frames)])],
+        cls_default=CAR)
+    sync()
+    count = launches()
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dcn_sample"] = n_dcn * n_frames if on_card else 0
+    if count != expected:
+        raise AssertionError(f"KITTI kernel launches {count}, expected "
+                             f"{expected}")
+    dropped = [sum(c != CAR for c in frame_classes)
+               for frame_classes in classes]
+    cars = [sum(c == CAR for c in frame_classes) for frame_classes in classes]
+    if sum(dropped) == 0:
+        raise AssertionError("the car filter dropped nothing")
+    if min(len(v) for v in results.values()) < min_dets:
+        raise AssertionError("too few car tracks per frame: "
+                             f"{[len(v) for v in results.values()]}")
+    txt, n_lines = check_kitti_results(results, size[0], size[1], n_frames,
+                                       out_dir / "detector")
+    stages = stage_times(det, frames[1:6], sync)
+    row = {"phase": "kitti", "path": "Detector.run", "device": str(det.device),
+           "config": f"kitti_config dla_34 {cfg.dla_node} dcn_impl="
+                     f"{cfg.dcn_impl} {cfg.input_h}x{cfg.input_w} K={cfg.K} "
+                     f"max_object={cfg.max_object} dtype=float32",
+           "frames": n_frames, "frame_size": list(size),
+           "ms_per_frame_median": statistics.median(run_ms[1:]),
+           "ms_first_frame": run_ms[0],
+           "car_detections_per_frame_median": statistics.median(cars),
+           "non_car_detections_dropped_per_frame": dropped,
+           "tracks_per_frame_median": statistics.median(
+               len(v) for v in results.values()),
+           "dcn_layers": n_dcn, "launches": count,
+           "offset_abs_q01_q50_q99": offset_q,
+           "kitti_txt": txt, "kitti_txt_lines": n_lines,
+           "stage_ms_median": stages}
+    emit(row)
+    if on_card:
+        profile_phase(det, frames, row["ms_per_frame_median"],
+                      phase="kitti_profile")
+    detector_launches = count["dcn_sample"]
+    del det
+
+    rows, _, seqs = runner_phase(
+        frames, cfg.replace(dcn_impl="pallas"), device, layers, min_dets,
+        runs=(("test.py", 1, False), ("bench.py", CHUNK, False)),
+        phase="kitti_runner", heatmap=raise_class_heatmaps)
+    for run, seq in seqs.items():
+        check_kitti_results(
+            {i + 1: tracks_to_results(online, CAR)
+             for i, online in enumerate(seq)}, size[0], size[1], n_frames,
+            out_dir / run.replace(" ", "_"))
+    return (detector_launches,
+            {run: row["launches"]["dcn_sample_tap"]
+             for run, row in rows.items()})
+
+
 def per_frame_sums(rows):
     """Per-frame sums over the 16 layers of one frame (float32, 'trained'
     offsets)."""
@@ -1038,21 +1270,34 @@ def per_frame_sums(rows):
                         "bound_operations_ffma_ms")}
 
 
+def sums_entry(sums):
+    """Per-frame (or per-camera) sums as a kernel entry's numbers."""
+    return {"ms": sums["kernel_ms"], "plain_ms": sums["plain_ms"],
+            "library_ms": sums["library_ms"],
+            "bound_ms": max(sums["bound_bytes_ms"],
+                            sums["bound_operations_ms"]),
+            "bound_by": ("bytes" if sums["bound_bytes_ms"]
+                         >= sums["bound_operations_ms"] else "operations")}
+
+
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
-                 nuscenes_launches):
+                 nuscenes_launches, kitti_launches, kitti_runner_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame,
     the worst error of any case, and the launches of the paths that run it
     (the kernel phase's for the two no path reaches); ``dcn_sample`` adds
-    its sums over a 448x800 nuScenes camera."""
+    its sums over a 448x800 nuScenes camera, and it and ``dcn_sample_tap``
+    their sums over a 384x1280 KITTI frame."""
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         total = per_frame_sums([r for r in mine if r["model"] == "mot"])
         path = {"dcn_sample": (
-                    "Detector.run (MOT) and Detector.run_multi (nuScenes), "
-                    "dcn_impl=hybrid", slice_launches + nuscenes_launches),
-                "dcn_sample_tap": ("PipelinedRunner chunk 1, dcn_impl=pallas",
-                                   runner_launches)}
+                    "Detector.run (MOT, KITTI) and Detector.run_multi "
+                    "(nuScenes), dcn_impl=hybrid",
+                    slice_launches + nuscenes_launches + kitti_launches),
+                "dcn_sample_tap": (
+                    "PipelinedRunner chunk 1 (MOT, KITTI), dcn_impl=pallas",
+                    runner_launches + kitti_runner_launches["test.py"])}
         path_name, count = path.get(name, (
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
@@ -1068,19 +1313,25 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
             "bound_by": ("bytes" if total["bound_bytes_ms"]
                          >= total["bound_operations_ms"] else "operations"),
             "library_ms": total["library_ms"]}
+        if name in ("dcn_sample", "dcn_sample_tap"):
+            entry["kitti_per_frame"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "kitti"]))
         if name == "dcn_sample":
-            nus = per_frame_sums([r for r in mine if r["model"] == "nuscenes"])
             entry["launches_by_path"] = {
-                "Detector.run, MOT, 30 frames": slice_launches,
+                f"Detector.run, MOT, {FRAMES} frames": slice_launches,
                 f"Detector.run_multi, nuScenes, {NUSCENES_SAMPLES} samples "
-                f"x {CAMERAS} cameras": nuscenes_launches}
-            entry["nuscenes_per_camera"] = {
-                "ms": nus["kernel_ms"], "plain_ms": nus["plain_ms"],
-                "library_ms": nus["library_ms"],
-                "bound_ms": max(nus["bound_bytes_ms"],
-                                nus["bound_operations_ms"]),
-                "bound_by": ("bytes" if nus["bound_bytes_ms"]
-                             >= nus["bound_operations_ms"] else "operations")}
+                f"x {CAMERAS} cameras": nuscenes_launches,
+                f"Detector.run, KITTI, {FRAMES} frames": kitti_launches}
+            entry["nuscenes_per_camera"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "nuscenes"]))
+        if name == "dcn_sample_tap":
+            entry["launches_by_path"] = {
+                f"PipelinedRunner chunk 1, MOT, {FRAMES} frames":
+                    runner_launches}
+            entry["launches_by_path"].update({
+                f"PipelinedRunner chunk {c}, KITTI, {FRAMES} frames":
+                    kitti_runner_launches[run]
+                for run, c in (("test.py", 1), ("bench.py", CHUNK))})
         if name == "dcn_fused":
             entry["product"] = "3xTF32 mma.sync.m16n8k8, split-K"
             entry["bound_ffma_ms"] = max(total["bound_bytes_ms"],
@@ -1092,7 +1343,8 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
             entry["store"] = "streaming (st.global.cs)"
             entry["with_gemm_ms"] = sum(
                 r["with_gemm_ms"] * r["count"] for r in mine
-                if r["regime"] == "trained" and r["dtype"] == "float32")
+                if r["regime"] == "trained" and r["dtype"] == "float32"
+                and r["model"] == "mot")
         entries.append(entry)
     return {"kernels": entries}
 
@@ -1120,18 +1372,22 @@ def main() -> int:
     kernel_launches = launches()
     frames = list(synthetic_frames(FRAMES))
     slice_launches, det, ms_per_frame = slice_phase(mot_config(), frames)
+    checkpoint_phase(det, frames[0])
     profile_phase(det, frames, ms_per_frame)
     del det
-    runner_rows, runner = runner_phase(frames)
+    runner_rows, runners, _ = runner_phase(frames)
+    runner = runners["test.py"]
     runner_profile_phase(runner, frames,
                          runner_rows["test.py"]["ms_per_frame"])
-    del runner, frames
+    del runner, runners, frames
     nuscenes_launches = nuscenes_phase()
+    kitti_launches, kitti_runner_launches = kitti_phase()
 
     print(smi, flush=True)
     emit(kernels_line(rows, kernel_launches, slice_launches,
                       runner_rows["test.py"]["launches"]["dcn_sample_tap"],
-                      nuscenes_launches))
+                      nuscenes_launches, kitti_launches,
+                      kitti_runner_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

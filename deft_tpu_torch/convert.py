@@ -21,9 +21,10 @@ does not know cannot pass silently.
 ``from_jax_motion_variables`` does the same for the LSTM motion model: flax's
 ``OptimizedLSTMCell`` keeps one Dense per gate (``ii, if, ig, io`` on the
 input without a bias, ``hi, hf, hg, ho`` on the hidden state with one), which
-``torch.nn.LSTMCell`` stacks in the same i, f, g, o order into ``weight_ih``
-``[4H, F]`` and ``weight_hh`` ``[4H, H]``, its hidden-side bias the flax
-biases and its input-side bias zero.
+the reference's one-layer ``torch.nn.LSTM`` stacks in the same i, f, g, o
+order into ``weight_ih_l0`` ``[4H, F]`` and ``weight_hh_l0`` ``[4H, H]``, its
+hidden-side bias ``bias_hh_l0`` the flax biases and its input-side bias
+``bias_ih_l0`` zero.
 """
 
 from __future__ import annotations
@@ -225,12 +226,12 @@ def from_jax_motion_variables(variables: dict) -> Dict[str, torch.Tensor]:
 
     bias_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
     return OrderedDict([
-        ("lstm.weight_ih", t(np.concatenate(
+        ("lstm.weight_ih_l0", t(np.concatenate(
             [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates]))),
-        ("lstm.weight_hh", t(np.concatenate(
+        ("lstm.weight_hh_l0", t(np.concatenate(
             [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates]))),
-        ("lstm.bias_ih", t(np.zeros_like(bias_hh))),
-        ("lstm.bias_hh", t(bias_hh)),
+        ("lstm.bias_ih_l0", t(np.zeros_like(bias_hh))),
+        ("lstm.bias_hh_l0", t(bias_hh)),
         ("out1.weight", t(np.asarray(params["out1"]["kernel"]).T)),
         ("out1.bias", t(params["out1"]["bias"])),
         ("out2.weight", t(np.asarray(params["out2"]["kernel"]).T)),

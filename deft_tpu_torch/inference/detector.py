@@ -1,5 +1,5 @@
 """Per-frame inference runtime, copied from ``deft_tpu/inference/detector.py``
-(MOT and nuScenes).
+(MOT, KITTI tracking and nuScenes).
 
 One frame: ``pre_process`` warps and normalizes it on the detector's device
 (the separable two-matmul warp of ``ops/warp.py`` in place of the JAX
@@ -11,9 +11,15 @@ evaluates the window similarity against its on-device ring and runs the
 association cascade.  Embeddings stay on the device from ``detect`` to the
 ring.
 
-nuScenes runs one tracker per tracking class, all drawing ids from one
-``IdAllocator`` and stepping one LSTM motion model, and ``run_multi`` takes
-the six cameras of a sample through one batched ``detect``.
+KITTI tracks cars only: ``run`` hands the tracker the Car detections and
+their embeddings.  nuScenes runs one tracker per tracking class, all drawing
+ids from one ``IdAllocator`` and stepping one LSTM motion model, and
+``run_multi`` takes the six cameras of a sample through one batched
+``detect``.
+
+``cfg.load_model`` names a reference ``.pth`` that overlays the seeded
+network tolerantly, ``cfg.load_model_traj`` a reference ``DecoderRNN``
+``.pth`` that the LSTM motion model loads strictly (``checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deft_tpu_torch.checkpoint import load_tolerant, load_torch_state_dict
 from deft_tpu_torch.config import Config
 from deft_tpu_torch.data.datasets import (
     NUSCENES_TRACKING_CLASSES,
@@ -45,15 +52,19 @@ _LATER = "is not ported yet (ROADMAP.md, queue A)"
 
 
 class Detector:
-    """``state_dict``: the network's weights (else seeded ones);
-    ``motion_state_dict``: the LSTM motion model's, where ``cfg.lstm``."""
+    """``state_dict``: the network's weights, loaded strictly (else
+    ``cfg.load_model``'s file overlaid tolerantly, else seeded ones);
+    ``motion_state_dict``: the LSTM motion model's where ``cfg.lstm`` (else
+    ``cfg.load_model_traj``'s file, else seeded ones).  ``load_report``
+    lists the keys of ``cfg.load_model`` that loaded, kept the seeded value
+    and were dropped (None without the file)."""
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
                  device="cuda", motion_state_dict: Optional[dict] = None):
-        if cfg.dataset not in ("mot", "nuscenes"):
+        if cfg.dataset not in ("mot", "kitti_tracking", "nuscenes"):
             raise NotImplementedError(f"dataset {cfg.dataset!r} {_LATER}")
         for flag in ("public_det", "debug", "embed_parity", "flip_test",
-                     "load_model", "load_model_traj", "keep_res"):
+                     "keep_res"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"{flag} {_LATER}")
         if cfg.fix_short > 0:
@@ -62,8 +73,14 @@ class Detector:
         self.dataset = cfg.dataset
         self.device = resolve_device(device)
         self.model = create_model(cfg.arch, cfg, self.device)
+        self.load_report = None
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        elif cfg.load_model:
+            self.load_report = load_tolerant(
+                self.model, load_torch_state_dict(cfg.load_model))
+        if cfg.lstm and motion_state_dict is None and cfg.load_model_traj:
+            motion_state_dict = load_torch_state_dict(cfg.load_model_traj)
         self.embed_dim = self.model.embed_dim
         self.info = get_dataset_info(cfg.test_dataset or cfg.dataset)
         self.rest_focal_length = (self.info.focal_length
@@ -158,6 +175,12 @@ class Detector:
     def _track(self, results, emb, image_info) -> List[STrack]:
         if self.dataset == "nuscenes":
             return self._update_nuscenes(results, emb, image_info)
+        if self.dataset == "kitti_tracking":
+            # cars only, with their embeddings (reference detector.py:313-317)
+            keep = [i for i, d in enumerate(results) if d["class"] == 2]
+            rows = torch.as_tensor(keep, dtype=torch.long, device=emb.device)
+            return self.tracker.update([results[i] for i in keep],
+                                       emb.index_select(0, rows))
         return self.tracker.update(results, emb)
 
     def run(self, image_or_frame, meta: Optional[dict] = None,

@@ -1,21 +1,27 @@
 """Sequence tracking and the results writers, the counterpart of the
-tracking path of ``test.py``, of ``deft_tpu/data/datasets/mot.py``'s writer
-and of ``deft_tpu/data/datasets/nuscenes.py``'s submission.
+tracking path of ``test.py``, of the MOT and KITTI tracking writers of
+``deft_tpu/data/datasets/`` and of ``deft_tpu/data/datasets/nuscenes.py``'s
+submission.
 
 * ``track_videos`` drives a ``PipelinedRunner`` over sequences of decoded
   frames the way ``test.py:172-210`` does: ``reset`` per sequence, ``submit``
-  per frame, ``flush`` at the end, results keyed by image id;
+  per frame, ``flush`` at the end, results keyed by image id
+  (``cls_default=2`` on KITTI, ``test.py:184, :204``);
+* ``track_videos_detector`` is the same loop through ``Detector.run``, one
+  frame at a time (``test.py``'s path without a runner);
 * ``track_nuscenes`` drives ``Detector.run_multi`` over nuScenes scenes the
   way ``test.py:134-170`` does: each scene's frames in sample-major order,
   every sample's cameras as one batch;
 * ``tracks_to_results`` turns a frame's tracks into submission items;
 * ``save_mot_results`` writes one MOTChallenge txt per sequence, renumbering
   track ids from 1 in sorted order;
+* ``save_kitti_results`` writes one KITTI tracking txt per sequence;
 * ``nuscenes_submission`` builds the nuScenes tracking submission.
 
 Scoring MOT is ``tools/eval_mot.py::evaluate_mot_dir`` on the written
-directory (numpy and scipy only).  Reading image files waits for a decoder
-in the port (ROADMAP.md, queue A): callers pass decoded uint8 BGR frames.
+directory, scoring KITTI ``tools/eval_kitti.py::evaluate_kitti_dir`` (numpy
+and scipy only).  Reading image files waits for a decoder in the port
+(ROADMAP.md, queue A): callers pass decoded uint8 BGR frames.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 import numpy as np
 
 from deft_tpu_torch.data.datasets import (
+    KITTI_TRACKING_INFO,
     NUSCENES_CYCLES,
     NUSCENES_ID_TO_ATTRIBUTE,
     NUSCENES_INFO,
@@ -86,6 +93,20 @@ def track_videos(runner, videos: Iterable[Video],
                                                             cls_default)
         for tracks in runner.flush():
             results[pending.pop(0)] = tracks_to_results(tracks, cls_default)
+    return results
+
+
+def track_videos_detector(detector, videos: Iterable[Video],
+                          cls_default: int = 1) -> Dict[int, List[dict]]:
+    """``track_videos`` through ``Detector.run``: trackers reset per
+    sequence, one ``run`` per frame.  A frame may be a decoded BGR frame or
+    ``run``'s prefetched ``{"images", "meta"}`` form."""
+    results: Dict[int, List[dict]] = {}
+    for _, frames in videos:
+        detector.reset_tracking()
+        for image_id, image in frames:
+            results[image_id] = tracks_to_results(detector.run(image),
+                                                  cls_default)
     return results
 
 
@@ -148,6 +169,43 @@ def save_mot_results(results: Dict[int, List[dict]], videos: Sequence[dict],
                     f.write(f"{t[0]},{new_id},{t[1]:.2f},{t[2]:.2f},"
                             f"{t[3] - t[1]:.2f},{t[4] - t[2]:.2f},"
                             "-1,-1,-1,-1\n")
+    return results_dir
+
+
+def save_kitti_results(results: Dict[int, List[dict]], videos: Sequence[dict],
+                       video_to_images: Dict[object, Sequence[dict]],
+                       save_dir: str) -> str:
+    """KITTI tracking txt writer
+    (``deft_tpu/data/datasets/kitti_tracking.py:28-59``): per item ``frame
+    track_id type -1 -1 alpha x1 y1 x2 y2 h w l x y z rot_y score`` with the
+    0-based frame, the track id as it is, every item (active or not) and the
+    3-D fields integer-cast, defaulted where a 2-D item has none.  Arguments
+    as ``save_mot_results``'; returns the results directory."""
+    results_dir = os.path.join(save_dir, "results_kitti_tracking")
+    os.makedirs(results_dir, exist_ok=True)
+    for video in videos:
+        path = os.path.join(results_dir, f"{video['file_name']}.txt")
+        with open(path, "w") as f:
+            for image_info in video_to_images[video["id"]]:
+                if image_info["id"] not in results:
+                    continue
+                frame_id = image_info["frame_id"]
+                for item in results[image_info["id"]]:
+                    cname = KITTI_TRACKING_INFO.class_name[item["class"] - 1]
+                    alpha = item.get("alpha", -1)
+                    rot_y = item.get("rot_y", -10)
+                    dim = item.get("dim", [-1, -1, -1])
+                    if "dim" in item:
+                        dim = [max(d, 0.01) for d in item["dim"]]
+                    loc = item.get("loc", [-1000, -1000, -1000])
+                    tid = item.get("tracking_id", -1)
+                    b = item["bbox"]
+                    f.write(
+                        f"{frame_id - 1} {tid} {cname} -1 -1 {int(alpha):d}"
+                        f" {b[0]:.2f} {b[1]:.2f} {b[2]:.2f} {b[3]:.2f}"
+                        f" {int(dim[0]):d} {int(dim[1]):d} {int(dim[2]):d}"
+                        f" {int(loc[0]):d} {int(loc[1]):d} {int(loc[2]):d}"
+                        f" {int(rot_y):d} {item['score']:.2f}\n")
     return results_dir
 
 

@@ -4,8 +4,9 @@
 ``DecoderRNN``: an LSTM cell (11-d 2-D features or 18-d nuScenes 3-D
 features -> 128 hidden), then Linear(128 -> 64) and Linear(64 -> 4 * future),
 predicting per-future-frame box deltas (5 futures for 2-D, 4 for nuScenes).
-Parameter names follow the reference's module (``lstm.*``, ``out1.*``,
-``out2.*``; the cell's keys lack the reference ``nn.LSTM``'s ``_l0``).
+Parameter names are the reference module's (``lstm.{weight,bias}_{ih,hh}_l0``
+of its one-layer ``nn.LSTM``, ``out1.*``, ``out2.*``), so a reference motion
+``.pth`` loads strictly.
 
 ``LSTMMotion`` holds the module on its device and steps every track the
 tracker updated in a frame as one batch (``predict_batch``).  Rows are
@@ -45,14 +46,19 @@ class DecoderRNN(nn.Module):
     def __init__(self, dataset: str = "mot", hidden: int = HIDDEN):
         super().__init__()
         self.future = max_future(dataset)
-        self.lstm = nn.LSTMCell(motion_feature_dim(dataset), hidden)
+        # the reference's one-layer nn.LSTM holds the parameters; ``step``
+        # runs its single cell update (nn.LSTMCell's arithmetic) on them
+        self.lstm = nn.LSTM(motion_feature_dim(dataset), hidden)
         self.out1 = nn.Linear(hidden, 64)
         self.out2 = nn.Linear(64, 4 * self.future)
 
     def step(self, h: torch.Tensor, c: torch.Tensor, feat: torch.Tensor):
         """One cell update.  h, c: [B, H]; feat: [B, F] ->
         (h', c', deltas [B, future, 4])."""
-        h2, c2 = self.lstm(feat, (h, c))
+        lstm = self.lstm
+        h2, c2 = torch.lstm_cell(feat, (h, c), lstm.weight_ih_l0,
+                                 lstm.weight_hh_l0, lstm.bias_ih_l0,
+                                 lstm.bias_hh_l0)
         x = self.out2(self.out1(h2))
         return h2, c2, x.reshape(feat.shape[0], self.future, 4)
 

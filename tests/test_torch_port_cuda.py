@@ -16,6 +16,10 @@ from deft_tpu_torch.ops import cuda_dcn
 
 pytestmark = pytest.mark.cuda
 
+# the inputs of the 7 DLA-34 DCNv2 layers of a 384x1280 KITTI frame (T1 and
+# T2 do not see Cout, so 7 layers give 4 inputs)
+KITTI_INPUTS = [(96, 320, 64), (48, 160, 128), (24, 80, 256), (12, 40, 512)]
+
 
 @pytest.fixture
 def cuda_device():
@@ -35,7 +39,7 @@ def _inputs(h, w, c, seed, dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
-                                   (34, 60, 256)])
+                                   (34, 60, 256)] + KITTI_INPUTS)
 @pytest.mark.parametrize("radius", [4, -1])
 def test_dcn_sample_matches_plain(cuda_device, h, w, c, dtype, radius):
     """fp32 within 1e-5 * max|x|; bf16 within one bf16 step of max|x|
@@ -61,7 +65,7 @@ def test_dcn_sample_rejects_non_contiguous(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
                                    (34, 60, 256), (17, 30, 512),
-                                   (136, 240, 64)])
+                                   (136, 240, 64)] + KITTI_INPUTS)
 def test_dcn_sample_tap_matches_plain(cuda_device, h, w, c, dtype):
     """T2's kernel: within 1e-5 * max|x| in float32, one bf16 step of
     max|x| (2**-7 * max|x|) in bf16."""
@@ -78,7 +82,7 @@ def test_dcn_sample_tap_matches_plain(cuda_device, h, w, c, dtype):
 
 @pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
                                    (34, 60, 256), (17, 30, 512),
-                                   (136, 240, 64)])
+                                   (136, 240, 64)] + KITTI_INPUTS)
 def test_dcn_sample_tap_is_plain_sampling_of_rounded_x(cuda_device, h, w, c):
     """T2 on x equals T1 on x rounded to bf16, bit for bit in float32: the
     two entries share one template and each element's arithmetic."""
@@ -308,3 +312,21 @@ def test_tracker_defaults_to_the_card(cuda_device):
     assert next(tracker.motion.model.parameters()).device.type == "cuda"
     recorder = DeviceFeatureRecorder("mot", 8, 16, None)
     assert recorder.embeds.device.type == "cuda"
+
+
+def test_lstm_step_on_card_is_the_cell_update(cuda_device):
+    """``DecoderRNN.step`` on the card, on the one-layer LSTM's ``_l0``
+    parameters, is ``nn.LSTMCell``'s update bit for bit."""
+    from deft_tpu_torch.tracking.motion_lstm import DecoderRNN
+
+    torch.manual_seed(0)
+    rnn = DecoderRNN("nuscenes").to(cuda_device)
+    cell = torch.nn.LSTMCell(18, 128).to(cuda_device)
+    with torch.no_grad():
+        for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            getattr(cell, name).copy_(getattr(rnn.lstm, name + "_l0"))
+        h, c, x = (torch.randn(33, n, device=cuda_device)
+                   for n in (128, 128, 18))
+        h2, c2, _ = rnn.step(h, c, x)
+        want = cell(x, (h, c))
+    assert torch.equal(h2, want[0]) and torch.equal(c2, want[1])
