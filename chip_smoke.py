@@ -31,6 +31,13 @@ max_object=100, 50-slot rings) with seeded random weights:
   ``track.py::track_videos_detector`` -> ``Detector.run`` (``dcn_impl=
   "hybrid"``) and through the ``PipelinedRunner`` at chunk 1 and chunk 4
   (``dcn_impl="pallas"``), each path's tracks written as KITTI txt;
+* slice 7, MOT17 public detections (``mot_config(public_det=True)``): the
+  slice 1 frames with MOT17-like public boxes made from their rectangles,
+  through ``track_videos_detector`` -> ``Detector.run`` (hybrid) and
+  ``track_videos`` -> the runner at chunk 1 (pallas), where no head tower
+  and no decode may run and the track boxes must lie over public boxes
+  (IoU >= 0.5 for 95% of them; PERF.md, PR 7), plus one full-width ``embed_parity`` frame (``detect``'s
+  embeddings equal ``embed_image`` at the parity centres);
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -74,7 +81,8 @@ from deft_tpu_torch.config import kitti_config, mot_config, nuscenes_config
 from deft_tpu_torch.csrc.build import BUILD_DIR, build_all
 from deft_tpu_torch.data.synthetic_kitti import make_sequence
 from deft_tpu_torch.data.synthetic_nuscenes import make_scene
-from deft_tpu_torch.inference.detector import Detector
+import deft_tpu_torch.models.deft as deft_model
+from deft_tpu_torch.inference.detector import Detector, parity_tf
 from deft_tpu_torch.inference.runner import PipelinedRunner
 from deft_tpu_torch.models.dcn import DCNv2
 from deft_tpu_torch.models.factory import create_model
@@ -84,6 +92,7 @@ from deft_tpu_torch.track import (
     save_kitti_results,
     track_nuscenes,
     tracks_to_results,
+    track_videos,
     track_videos_detector,
 )
 from deft_tpu_torch.tracking import matching, motion_lstm
@@ -143,6 +152,9 @@ KERNELS = {
                           "LAUNCHES_ONEHOT"),                             # T4
 }
 CHUNK = 4                      # bench.py's runner
+PUBLIC_IOU_SHARE = 0.95         # public track boxes at IoU >= 0.5 with a
+                               # public box of their frame (see
+                               # check_public_results)
 BOX_TOL_CARD = 0.0             # px: runner chunk 1 vs chunk 4 frame_chunk
                                # (the same programs per frame)
 
@@ -219,6 +231,28 @@ def graph_times(fn, per_graph: int = 20, reps: int = 7) -> float:
         times.append(start.elapsed_time(end) / per_graph)
     del graph
     return statistics.median(times)
+
+
+def device_profile(fn, n: int):
+    """``torch.profiler`` over ``fn()``, which does ``n`` units of work:
+    (device kernel ms per unit, the 12 costliest kernels per unit)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        kernels.append((t / 1e3 / n, evt.count / n, evt.key))
+    kernels.sort(reverse=True)
+    return (sum(k[0] for k in kernels),
+            [[round(t, 4), c, name[:90]] for t, c, name in kernels[:12]])
 
 
 # ---- the kernel against its plain version ----------------------------------
@@ -434,8 +468,10 @@ def kernel_phase():
 
 # ---- the main path ----------------------------------------------------------
 
-def synthetic_frames(n: int, h: int = 1080, w: int = 1920):
-    """Moving coloured rectangles on a noisy background, uint8 BGR."""
+def synthetic_scene(n: int, h: int = 1080, w: int = 1920):
+    """Moving coloured rectangles on a noisy background: per frame the
+    uint8 BGR image and the rectangles' [x1, y1, x2, y2] boxes (float64
+    [40, 4], in drawing order: later ones may cover earlier ones)."""
     rng = np.random.RandomState(SEED + 1)
     n_obj = 40
     size = (rng.uniform([0.07, 0.02], [0.28, 0.08], (n_obj, 2))
@@ -446,10 +482,19 @@ def synthetic_frames(n: int, h: int = 1080, w: int = 1920):
     base = rng.randint(0, 48, (h, w, 3)).astype(np.uint8)
     for f in range(n):
         img = base.copy()
-        for (y, x), (vy, vx), (bh, bw), col in zip(pos, vel, size, colours):
+        boxes = np.empty((n_obj, 4))
+        for i, ((y, x), (vy, vx), (bh, bw), col) in enumerate(
+                zip(pos, vel, size, colours)):
             y0 = int(np.clip(y + vy * f, 0, h - bh))
             x0 = int(np.clip(x + vx * f, 0, w - bw))
             img[y0: y0 + bh, x0: x0 + bw] = col
+            boxes[i] = (x0, y0, x0 + bw, y0 + bh)
+        yield img, boxes
+
+
+def synthetic_frames(n: int, h: int = 1080, w: int = 1920):
+    """``synthetic_scene``'s frames alone."""
+    for img, _ in synthetic_scene(n, h, w):
         yield img
 
 
@@ -824,9 +869,6 @@ def profile_phase(det, frames, ms_per_frame, phase="profile"):
     time per frame by name.  The busy share divides that kernel time by the
     (unprofiled) median ms/frame of the phase that drove ``det``, the slice
     phase's or, under ``phase="kitti_profile"``, the KITTI phase's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     images, _ = det.pre_process(frames[0])
     rec = det.tracker.recorder
     counts = torch.as_tensor(rec.counts, device=det.device)
@@ -839,24 +881,11 @@ def profile_phase(det, frames, ms_per_frame, phase="profile"):
                                                    det.cfg.max_object)),
            "ring_slots_filled": int((rec.counts > 0).sum())}
     n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for frame in frames[1: 1 + n]:
-            det.run(frame)
-        torch.cuda.synchronize()
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
-        kernels.append((t / 1e3 / n, evt.count / n, evt.key))
-    kernels.sort(reverse=True)
-    device_ms = sum(k[0] for k in kernels)
+    device_ms, top = device_profile(
+        lambda: [det.run(frame) for frame in frames[1: 1 + n]], n)
     row.update({"profiled_frames": n, "device_ms_per_frame": device_ms,
                 "busy_share": device_ms / ms_per_frame,
-                "top_kernels_ms_per_frame": [
-                    [round(t, 4), c, name[:90]] for t, c, name in kernels[:12]]})
+                "top_kernels_ms_per_frame": top})
     emit(row)
 
 
@@ -1075,31 +1104,19 @@ def nuscenes_phase(cfg=None, device="cuda", layers=NUSCENES_LAYERS,
 def profile_samples(det, scene, ms_per_sample):
     """``torch.profiler`` over 2 samples of ``run_multi``: device kernel
     time per sample by name, and its share of the unprofiled ms/sample."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     n = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def samples():
         for i in range(0, n * CAMERAS, CAMERAS):
             sample = scene[i: i + CAMERAS]
             det.run_multi([f for _, f in sample],
                           [{"calib": inf["calib"]} for inf, _ in sample],
                           [inf for inf, _ in sample])
-        torch.cuda.synchronize()
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
-        kernels.append((t / 1e3 / n, evt.count / n, evt.key))
-    kernels.sort(reverse=True)
-    device_ms = sum(k[0] for k in kernels)
+
+    device_ms, top = device_profile(samples, n)
     return {"profiled_samples": n, "device_ms_per_sample": device_ms,
             "busy_share": device_ms / ms_per_sample,
-            "top_kernels_ms_per_sample": [
-                [round(t, 4), c, name[:90]] for t, c, name in kernels[:12]]}
+            "top_kernels_ms_per_sample": top}
 
 
 @torch.no_grad()
@@ -1259,6 +1276,291 @@ def kitti_phase(cfg=None, device="cuda", layers=KITTI_LAYERS,
              for run, row in rows.items()})
 
 
+def public_detections(boxes_per_frame, h: int, w: int, seed: int = SEED + 5):
+    """Public detections of the scene, shaped like MOT17's DPM / FRCNN /
+    SDP det files: each rectangle's box jittered by up to 3% of its size,
+    ~10% of them dropped, 2-4 false positives of a rectangle's size range,
+    scores U(0.3, 1.0); ~36-44 per frame.  Per frame a list of the det
+    dicts of ``data/public_dets.py``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for boxes in boxes_per_frame:
+        size = np.tile(boxes[:, 2:] - boxes[:, :2], 2)
+        jittered = boxes + rng.uniform(-0.03, 0.03, boxes.shape) * size
+        kept = jittered[rng.uniform(size=len(boxes)) >= 0.1]
+        n_fp = rng.randint(2, 5)
+        wh = rng.uniform([0.02, 0.07], [0.08, 0.28], (n_fp, 2)) * [w, h]
+        xy = rng.uniform(0, 1, (n_fp, 2)) * ([w, h] - wh)
+        dets = np.concatenate([kept, np.concatenate([xy, xy + wh], 1)])
+        scores = rng.uniform(0.3, 1.0, len(dets))
+        out.append([{"bbox": [float(v) for v in d], "score": float(sc),
+                     "class": 1,
+                     "ct": [float(d[0] + d[2]) / 2, float(d[1] + d[3]) / 2]}
+                    for d, sc in zip(dets, scores)])
+    return out
+
+
+def box_iou(a, b) -> np.ndarray:
+    """[N, 4] x [M, 4] tlbr boxes -> [N, M] IoU."""
+    a, b = np.asarray(a, np.float64)[:, None], np.asarray(b, np.float64)[None]
+    iw = (np.minimum(a[..., 2], b[..., 2])
+          - np.maximum(a[..., 0], b[..., 0])).clip(min=0)
+    ih = (np.minimum(a[..., 3], b[..., 3])
+          - np.maximum(a[..., 1], b[..., 1])).clip(min=0)
+    inter = iw * ih
+    area = lambda t: (t[..., 2] - t[..., 0]) * (t[..., 3] - t[..., 1])
+    return inter / (area(a) + area(b) - inter)
+
+
+def check_public_results(results, dets_of_image, max_object: int):
+    """The tracker reports one item per public detection it was handed
+    (matched tracks and births: a frame's first max_object), each over a
+    public box of its frame.  A matched track reports its Kalman posterior,
+    which lies between its prediction and the box it was matched to, so an
+    item's best IoU with the frame's public boxes falls below 0.5 only where
+    the association swapped two objects; with seeded random weights the AFE
+    similarity is flat and swaps happen (PERF.md, PR 7), so at least
+    PUBLIC_IOU_SHARE of the items must reach 0.5 and every item must
+    overlap a public box.  Returns (items per frame, the share at IoU >=
+    0.5, the least best IoU)."""
+    n_items, best = [], []
+    for image_id, items in results.items():
+        public = dets_of_image[image_id]
+        if len(items) != min(len(public), max_object):
+            raise AssertionError(f"image {image_id}: {len(items)} items for "
+                                 f"{len(public)} public detections")
+        n_items.append(len(items))
+        if items:
+            best += box_iou([it["bbox"] for it in items],
+                            [d["bbox"] for d in public]).max(axis=1).tolist()
+    share = float(np.mean(np.asarray(best) >= 0.5))
+    if share < PUBLIC_IOU_SHARE or min(best) <= 0.0:
+        raise AssertionError(f"{share} of the track boxes at IoU >= 0.5 with "
+                             f"a public box of their frame, the least at "
+                             f"{min(best)}")
+    return n_items, share, min(best)
+
+
+class ModelCalls:
+    """Counts the head towers' forwards and ``generic_decode`` calls of a
+    model while it is entered."""
+
+    def __init__(self, model):
+        self.model = model
+        self.heads = self.decodes = 0
+
+    def _head(self, *_):
+        self.heads += 1
+
+    def _decode(self, *args, **kwargs):
+        self.decodes += 1
+        return self._generic_decode(*args, **kwargs)
+
+    def __enter__(self):
+        self._hooks = [getattr(self.model, h).register_forward_hook(self._head)
+                       for h in self.model.heads]
+        self._generic_decode = deft_model.generic_decode
+        deft_model.generic_decode = self._decode
+        return self
+
+    def __exit__(self, *exc):
+        for hk in self._hooks:
+            hk.remove()
+        deft_model.generic_decode = self._generic_decode
+
+
+def first_appearance_ids(per_frame):
+    """Per frame its track ids, renumbered in order of first appearance
+    (two paths draw ids from other allocators)."""
+    remap = {}
+    return [[remap.setdefault(i, len(remap)) for i in ids]
+            for ids in per_frame]
+
+
+@torch.no_grad()
+def embed_parity_check(det, frame):
+    """``detect`` under ``parity_tf`` at full width: its embeddings equal
+    ``embed_image`` at the parity centres computed on the host within
+    1e-4 of max|emb| (``tests/test_public_det.py::test_embed_parity_mode``).
+    Returns the row's numbers."""
+    images, meta = det.pre_process(frame)
+    ptf = parity_tf(meta)
+    dets, emb = det.model.detect(images, k=det.cfg.K, parity_tf=ptf)
+    _, emb_default = det.model.detect(images, k=det.cfg.K)
+    bb = dets["bboxes"][0].cpu().numpy().astype(np.float64)
+    cts = np.stack([(bb[:, 0] + bb[:, 2]) / 2, (bb[:, 1] + bb[:, 3]) / 2],
+                   -1) * 4.0                                 # input pixels
+    orig = (np.concatenate([cts, np.ones((len(cts), 1))], 1)
+            @ ptf[:6].reshape(2, 3).astype(np.float64).T)    # original pixels
+    centers = np.stack([2 * orig[:, 0] / meta["width"] - 1,
+                        2 * orig[:, 1] / meta["height"] - 1], -1)
+    ref = det.model.embed_image(images, torch.as_tensor(
+        centers[None], dtype=torch.float32, device=det.device))
+    err = (emb - ref).abs().max().item()
+    tol = 1e-4 * ref.abs().max().item()
+    if not (torch.isfinite(emb).all() and err <= tol):
+        raise AssertionError(f"embed_parity: detect vs embed_image at the "
+                             f"parity centres {err} > {tol}")
+    return {"embed_parity_max_abs_err": err, "embed_parity_tolerance": tol,
+            "embed_parity_vs_default_max_abs_diff":
+                (emb - emb_default).abs().max().item()}
+
+
+@torch.no_grad()
+def public_phase(cfg=None, device="cuda", layers=LAYERS, n_frames=FRAMES,
+                 size=(1080, 1920)):
+    """Slice 7's main path: MOT17 public detections
+    (``mot_config(public_det=True)``) on the slice's 30 synthetic frames,
+    whose rectangles give MOT17-like public detections
+    (``public_detections``).  First through ``track_videos_detector`` ->
+    ``Detector.run`` (``dcn_impl="hybrid"``), then through ``track_videos``
+    -> the ``PipelinedRunner`` at test.py's chunk 1 (``dcn_impl="pallas"``,
+    the same weights).  Each path must launch its kernel 16 times per frame
+    and no head tower or decode; each frame must report one item per
+    public detection, over the frame's public boxes
+    (``check_public_results``).  Then ``embed_parity_check`` on one
+    frame.  Reports ms/frame, the stage split (host timers and synchronized stages), the
+    runner's buckets, the device time per frame and busy share, peak
+    memory, and how many frames carry the same ids on the two paths
+    (renumbered by first appearance; T2 rounds each DCN input to bf16).
+    Returns the launches of the two paths.  ``cfg``, ``device``,
+    ``layers``, ``n_frames`` and ``size`` exist for a rehearsal on the
+    CPU."""
+    cfg = cfg or mot_config(public_det=True)
+    frames, boxes = zip(*synthetic_scene(n_frames, *size))
+    dets = public_detections(boxes, *size)
+    ids = list(range(1, n_frames + 1))
+    by_image = dict(zip(ids, dets))
+    video = [(1, list(zip(ids, frames)))]
+    det, n_dcn, offset_q = prepared_detector(cfg, frames, device, layers)
+    on_card = det.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else lambda: None
+    launched, per_frame_ids = {}, {}
+    for path in ("Detector.run", "PipelinedRunner"):
+        if path == "PipelinedRunner":
+            rdet = Detector(cfg.replace(dcn_impl="pallas"),
+                            det.model.state_dict(), device=device)
+            runner = PipelinedRunner(rdet, depth=3, chunk=CHUNK)
+            if runner.chunk != 1:
+                raise AssertionError(f"public runner at chunk {runner.chunk}")
+            runner.track_sequence(frames[:2], [{"cur_dets": d}
+                                               for d in dets[:2]])
+            rdet.ids = IdAllocator()
+            runner.reset()
+            model, kernel, impl = rdet.model, "dcn_sample_tap", "pallas"
+            drive = lambda: track_videos(runner, video, public_dets=by_image)
+        else:
+            run_ms = []
+            det.run = timed(det.run, sync, run_ms)
+            det.timers.reset()
+            model, kernel, impl = det.model, "dcn_sample", cfg.dcn_impl
+            drive = lambda: track_videos_detector(det, video,
+                                                  public_dets=by_image)
+        sync()
+        resident = None
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        with ModelCalls(model) as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            results = drive()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            count = launches()
+        expected = dict.fromkeys(KERNELS, 0)
+        expected[kernel] = n_dcn * n_frames if on_card else 0
+        if count != expected:
+            raise AssertionError(f"public {path}: kernel launches {count}, "
+                                 f"expected {expected}")
+        if calls.heads or calls.decodes:
+            raise AssertionError(f"public {path}: {calls.heads} head tower "
+                                 f"and {calls.decodes} decode calls")
+        if sorted(results) != ids:
+            raise AssertionError(f"public {path}: {len(results)} frames")
+        n_items, iou_share, worst_iou = check_public_results(
+            results, by_image, cfg.max_object)
+        launched[path] = count[kernel]
+        per_frame_ids[path] = [[it["tracking_id"] for it in results[i]]
+                               for i in ids]
+        row = {"phase": "public", "path": path, "device": str(det.device),
+               "config": f"mot_config public_det dla_34 {cfg.dla_node} "
+                         f"dcn_impl={impl} {cfg.input_h}x{cfg.input_w} "
+                         f"max_object={cfg.max_object}",
+               "frames": n_frames, "frame_size": list(size),
+               "public_dets_per_frame": [min(len(d) for d in dets),
+                                         statistics.median(len(d) for d in dets),
+                                         max(len(d) for d in dets)],
+               "items_per_frame_median": statistics.median(n_items),
+               "share_at_iou_0.5_with_public": iou_share,
+               "least_best_iou_with_public": worst_iou,
+               "dcn_layers": n_dcn, "launches": count,
+               "head_tower_calls": calls.heads, "decode_calls": calls.decodes,
+               "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                     if on_card else None),
+               "resident_at_start_bytes": resident,
+               "offset_abs_q01_q50_q99": offset_q}
+        if path == "Detector.run":
+            del det.run                     # the class's method again
+            row.update({"ms_per_frame_median": statistics.median(run_ms[1:]),
+                        "ms_first_frame": run_ms[0],
+                        "host_timers_ms": det.timers.mean_ms(),
+                        "stage_ms_median": public_stage_times(
+                            det, frames[1:6], dets[1:6], sync)})
+            if on_card:
+                det.reset_tracking()
+                dev_ms, top = device_profile(lambda: [
+                    det.run(f, {"cur_dets": d})
+                    for f, d in zip(frames[6:9], dets[6:9])], 3)
+                row.update({"device_ms_per_frame": dev_ms,
+                            "busy_share": dev_ms / row["ms_per_frame_median"],
+                            "top_kernels_ms_per_frame": top})
+            row.update(embed_parity_check(det, frames[0]))
+        else:
+            row.update({"chunk": runner.chunk, "depth": 3,
+                        "sim_window": runner.sim_window,
+                        "ms_per_frame": wall_ms / n_frames,
+                        "timings_ms_per_frame": runner.timings(),
+                        "main_keys": list(runner.main_keys())})
+            if on_card:
+                runner.reset()
+                dev_ms, top = device_profile(lambda: runner.track_sequence(
+                    frames[:8], [{"cur_dets": d} for d in dets[:8]]), 8)
+                row.update({"device_ms_per_frame": dev_ms,
+                            "busy_share": dev_ms / row["ms_per_frame"],
+                            "top_kernels_ms_per_frame": top})
+            canon = {p: first_appearance_ids(v)
+                     for p, v in per_frame_ids.items()}
+            same = [a == b for a, b in zip(canon["Detector.run"],
+                                           canon["PipelinedRunner"])]
+            row.update({"frames_with_detector_run_ids": sum(same),
+                        "first_frame_ids_differ": (same.index(False)
+                                                   if not all(same) else None)})
+        emit(row)
+    return launched
+
+
+def public_stage_times(det, frames, dets, sync) -> dict:
+    """A steady public ``Detector.run`` frame by the JAX package's stages
+    (pre, net, track): the median ms of each over ``frames``, each stage
+    ended by ``sync``."""
+    stages = {"pre": [], "net": [], "track": []}
+    for frame, d in zip(frames, dets):
+        t = [time.perf_counter()]
+        images, meta = det.pre_process(frame, {"cur_dets": d})
+        sync()
+        t.append(time.perf_counter())
+        results, emb = det.embed_public(images, meta)
+        sync()
+        t.append(time.perf_counter())
+        det.tracker.update(results, emb)
+        sync()
+        t.append(time.perf_counter())
+        for name, a, b in zip(stages, t[:-1], t[1:]):
+            stages[name].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in stages.items()}
+
+
 def per_frame_sums(rows):
     """Per-frame sums over the 16 layers of one frame (float32, 'trained'
     offsets)."""
@@ -1281,7 +1583,8 @@ def sums_entry(sums):
 
 
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
-                 nuscenes_launches, kitti_launches, kitti_runner_launches):
+                 nuscenes_launches, kitti_launches, kitti_runner_launches,
+                 public_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame,
     the worst error of any case, and the launches of the paths that run it
     (the kernel phase's for the two no path reaches); ``dcn_sample`` adds
@@ -1292,12 +1595,15 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
         mine = [r for r in rows if r["kernel"] == name]
         total = per_frame_sums([r for r in mine if r["model"] == "mot"])
         path = {"dcn_sample": (
-                    "Detector.run (MOT, KITTI) and Detector.run_multi "
-                    "(nuScenes), dcn_impl=hybrid",
-                    slice_launches + nuscenes_launches + kitti_launches),
+                    "Detector.run (MOT, MOT public detections, KITTI) and "
+                    "Detector.run_multi (nuScenes), dcn_impl=hybrid",
+                    slice_launches + nuscenes_launches + kitti_launches
+                    + public_launches["Detector.run"]),
                 "dcn_sample_tap": (
-                    "PipelinedRunner chunk 1 (MOT, KITTI), dcn_impl=pallas",
-                    runner_launches + kitti_runner_launches["test.py"])}
+                    "PipelinedRunner chunk 1 (MOT, MOT public detections, "
+                    "KITTI), dcn_impl=pallas",
+                    runner_launches + kitti_runner_launches["test.py"]
+                    + public_launches["PipelinedRunner"])}
         path_name, count = path.get(name, (
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
@@ -1321,7 +1627,9 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                 f"Detector.run, MOT, {FRAMES} frames": slice_launches,
                 f"Detector.run_multi, nuScenes, {NUSCENES_SAMPLES} samples "
                 f"x {CAMERAS} cameras": nuscenes_launches,
-                f"Detector.run, KITTI, {FRAMES} frames": kitti_launches}
+                f"Detector.run, KITTI, {FRAMES} frames": kitti_launches,
+                f"Detector.run, MOT public detections, {FRAMES} frames":
+                    public_launches["Detector.run"]}
             entry["nuscenes_per_camera"] = sums_entry(per_frame_sums(
                 [r for r in mine if r["model"] == "nuscenes"]))
         if name == "dcn_sample_tap":
@@ -1332,6 +1640,9 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                 f"PipelinedRunner chunk {c}, KITTI, {FRAMES} frames":
                     kitti_runner_launches[run]
                 for run, c in (("test.py", 1), ("bench.py", CHUNK))})
+            entry["launches_by_path"][
+                f"PipelinedRunner chunk 1, MOT public detections, {FRAMES} "
+                f"frames"] = public_launches["PipelinedRunner"]
         if name == "dcn_fused":
             entry["product"] = "3xTF32 mma.sync.m16n8k8, split-K"
             entry["bound_ffma_ms"] = max(total["bound_bytes_ms"],
@@ -1382,12 +1693,13 @@ def main() -> int:
     del runner, runners, frames
     nuscenes_launches = nuscenes_phase()
     kitti_launches, kitti_runner_launches = kitti_phase()
+    public_launches = public_phase()
 
     print(smi, flush=True)
     emit(kernels_line(rows, kernel_launches, slice_launches,
                       runner_rows["test.py"]["launches"]["dcn_sample_tap"],
                       nuscenes_launches, kitti_launches,
-                      kitti_runner_launches))
+                      kitti_runner_launches, public_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

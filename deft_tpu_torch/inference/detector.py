@@ -17,13 +17,26 @@ ids from one ``IdAllocator`` and stepping one LSTM motion model, and
 ``run_multi`` takes the six cameras of a sample through one batched
 ``detect``.
 
+Public detections (``cfg.public_det``, MOTChallenge's public-detection
+protocol): a frame whose meta carries ``cur_dets`` (boxes from a det file,
+``data/public_dets.py``) skips the model's heads and decode; ``run`` embeds
+the frame at those boxes' centres (``DEFTNet.embed_image``) and hands the
+tracker the public boxes.  ``cfg.embed_parity`` normalizes embedding
+centres by the original frame's dims, as the reference does, on both the
+model path (``detect``'s ``parity_tf``) and the public one.
+
 ``cfg.load_model`` names a reference ``.pth`` that overlays the seeded
 network tolerantly, ``cfg.load_model_traj`` a reference ``DecoderRNN``
 ``.pth`` that the LSTM motion model loads strictly (``checkpoint.py``).
+
+``timers`` keeps the JAX ``run``'s host stages (pre, net, post, track, tot;
+``timers.mean_ms()``).  On the card a stage ends when the host moves on:
+device work queued in one stage may be waited for in a later one.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -51,6 +64,61 @@ STD = np.array([0.28863828, 0.27408164, 0.27809835], np.float32)
 _LATER = "is not ported yet (ROADMAP.md, queue A)"
 
 
+def public_det_centers(cur_dets, meta, max_object: int,
+                       embed_parity: bool = False):
+    """Normalized AFE sample centres of public detections (``deft_tpu/
+    inference/detector.py:48-75``): each box centre in original pixels
+    through the input warp ``meta["trans_input"]``, normalized by the input
+    dims; under ``embed_parity`` normalized by the original dims instead, as
+    the reference does (tracker.py:818).  Returns ([max_object, 2] float32
+    centres in [-1, 1], zero-padded; the number of boxes kept)."""
+    n = min(len(cur_dets), max_object)
+    centers = np.zeros((max_object, 2), np.float32)
+    for i in range(n):
+        b = np.asarray(cur_dets[i]["bbox"], np.float64)
+        cx, cy = (b[0] + b[2]) / 2.0, (b[1] + b[3]) / 2.0
+        if embed_parity:
+            centers[i] = (2.0 * cx / meta["width"] - 1.0,
+                          2.0 * cy / meta["height"] - 1.0)
+        else:
+            pt = meta["trans_input"] @ np.array([cx, cy, 1.0])
+            centers[i] = (2.0 * pt[0] / meta["inp_width"] - 1.0,
+                          2.0 * pt[1] / meta["inp_height"] - 1.0)
+    return centers, n
+
+
+def parity_tf(meta) -> np.ndarray:
+    """``detect``'s [8] float32 ``parity_tf`` of a frame: the rows of its
+    inverse input warp, then its original width and height
+    (``deft_tpu/inference/detector.py:240-247``)."""
+    inv = get_affine_transform(meta["c"], meta["s"], 0,
+                               [meta["inp_width"], meta["inp_height"]],
+                               inv=True)
+    return np.concatenate([
+        np.asarray(inv, np.float32).reshape(-1),
+        np.asarray([meta["width"], meta["height"]], np.float32)])
+
+
+class StageTimers:
+    """Mean host seconds per stage (``deft_tpu/utils/timer.py``)."""
+
+    def __init__(self, stages):
+        self.stages = tuple(stages)
+        self.reset()
+
+    def add(self, stage: str, dt: float):
+        self.total[stage] += dt
+        self.count[stage] += 1
+
+    def mean_ms(self) -> Dict[str, float]:
+        return {s: self.total[s] * 1e3 / max(self.count[s], 1)
+                for s in self.stages}
+
+    def reset(self):
+        self.total = dict.fromkeys(self.stages, 0.0)
+        self.count = dict.fromkeys(self.stages, 0)
+
+
 class Detector:
     """``state_dict``: the network's weights, loaded strictly (else
     ``cfg.load_model``'s file overlaid tolerantly, else seeded ones);
@@ -63,8 +131,7 @@ class Detector:
                  device="cuda", motion_state_dict: Optional[dict] = None):
         if cfg.dataset not in ("mot", "kitti_tracking", "nuscenes"):
             raise NotImplementedError(f"dataset {cfg.dataset!r} {_LATER}")
-        for flag in ("public_det", "debug", "embed_parity", "flip_test",
-                     "keep_res"):
+        for flag in ("debug", "flip_test", "keep_res"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"{flag} {_LATER}")
         if cfg.fix_short > 0:
@@ -91,6 +158,7 @@ class Detector:
         self._mean = torch.as_tensor(MEAN, device=self.device)
         self._std = torch.as_tensor(STD, device=self.device)
         self.ids = IdAllocator()
+        self.timers = StageTimers(("pre", "net", "post", "track", "tot"))
         self.reset_tracking()
 
     # ---- lifecycle -----------------------------------------------------------
@@ -136,7 +204,8 @@ class Detector:
     def pre_process(self, image, input_meta: Optional[dict] = None):
         """image: [H, W, 3] uint8 frame (numpy or tensor) -> (normalized
         [1, inp_h, inp_w, 3] float32 on the device, meta).  ``input_meta``
-        may hold the camera's [3, 4] ``calib``."""
+        may hold the camera's [3, 4] ``calib``, and the frame's public
+        detections ``cur_dets`` and ``pre_dets``, which pass into meta."""
         _, c, s, inp_w, inp_h, height, width = self._transform_scale(image)
         trans_input = get_affine_transform(c, s, 0, [inp_w, inp_h])
         frame = torch.as_tensor(image, device=self.device)[None]
@@ -153,17 +222,42 @@ class Detector:
             "inp_height": inp_h, "inp_width": inp_w,
             "trans_input": trans_input,
         }
+        for key in ("pre_dets", "cur_dets"):
+            if input_meta and key in input_meta:
+                meta[key] = input_meta[key]
         return images, meta
+
+    def _prepare(self, image_or_frame, meta):
+        """A frame as ``run`` takes it -> (normalized [1, H, W, 3] on the
+        device, meta).  The prefetched form keeps its own meta; public
+        detections given in ``meta`` pass into it."""
+        if isinstance(image_or_frame, str):
+            raise NotImplementedError(
+                "reading image files needs an image decoder; pass the "
+                "decoded frame")
+        if not isinstance(image_or_frame, dict):
+            return self.pre_process(image_or_frame, meta)
+        images, frame_meta = image_or_frame["images"], image_or_frame["meta"]
+        extra = {k: meta[k] for k in ("pre_dets", "cur_dets")
+                 if meta and k in meta}
+        if extra:
+            frame_meta = {**frame_meta, **extra}
+        return (torch.as_tensor(images, dtype=torch.float32,
+                                device=self.device), frame_meta)
 
     # ---- the per-frame program -----------------------------------------------
 
     @torch.no_grad()
-    def process(self, images):
+    def process(self, images, meta: Optional[dict] = None):
         """Device step over a batch [B, H, W, 3]: (dets dict of numpy
-        [B, K, ...], embeddings [B, K, E] on the device)."""
+        [B, K, ...], embeddings [B, K, E] on the device).  Under
+        ``cfg.embed_parity`` the embeddings are sampled at centres
+        normalized by the original dims of ``meta``'s frame (one geometry
+        for the batch, as under fix_res)."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
-        dets, emb = self.model.detect(images, k=self.cfg.K)
+        ptf = parity_tf(meta) if self.cfg.embed_parity else None
+        dets, emb = self.model.detect(images, k=self.cfg.K, parity_tf=ptf)
         return {k: v.cpu().numpy() for k, v in dets.items()}, emb
 
     def post_process(self, dets, meta):
@@ -190,10 +284,45 @@ class Detector:
 
         ``image_or_frame`` is a decoded [H, W, 3] uint8 frame, or the JAX
         ``run``'s prefetched form ``{"images": [1, H, W, 3] normalized,
-        "meta": {...}}``; ``meta`` may hold the camera's ``calib``; nuScenes
-        needs the frame's ``image_info`` (its camera and ego-pose records).
+        "meta": {...}}``; ``meta`` may hold the camera's ``calib`` and the
+        frame's public detections ``cur_dets``; nuScenes needs the frame's
+        ``image_info`` (its camera and ego-pose records).
+
+        Under ``cfg.public_det`` a frame with ``cur_dets`` takes the public
+        branch (``deft_tpu/inference/detector.py:280-298``): its first
+        max_object boxes, embedded at their centres, go to the tracker; a
+        frame without them takes the model path.
         """
-        return self.run_multi([image_or_frame], [meta], [image_info])[0]
+        t0 = time.perf_counter()
+        images, meta = self._prepare(image_or_frame, meta)
+        self.timers.add("pre", time.perf_counter() - t0)
+        if self.cfg.public_det and "cur_dets" in meta:
+            online = self._run_public(images, meta)
+        else:
+            online = self.run_multi([{"images": images, "meta": meta}],
+                                    image_infos=[image_info])[0]
+        self.timers.add("tot", time.perf_counter() - t0)
+        return online
+
+    @torch.no_grad()
+    def embed_public(self, images, meta):
+        """The public branch's device step: (the frame's first max_object
+        public detections, their embeddings [n, E] on the device)."""
+        results = list(meta["cur_dets"])[: self.cfg.max_object]
+        centers, n = public_det_centers(results, meta, self.cfg.max_object,
+                                        self.cfg.embed_parity)
+        emb = self.model.embed_image(
+            images, torch.as_tensor(centers[None], device=self.device))
+        return results, emb[0][:n]
+
+    def _run_public(self, images, meta) -> List[STrack]:
+        t0 = time.perf_counter()
+        results, emb = self.embed_public(images, meta)
+        t1 = time.perf_counter()
+        self.timers.add("net", t1 - t0)
+        online = self.tracker.update(results, emb)
+        self.timers.add("track", time.perf_counter() - t1)
+        return online
 
     def run_multi(self, images_or_frames, metas=None, image_infos=None,
                   materialize=None):
@@ -210,27 +339,22 @@ class Detector:
         n = len(images_or_frames)
         metas = metas or [None] * n
         image_infos = image_infos or [None] * n
-        batch, b_metas = [], []
-        for img, meta in zip(images_or_frames, metas):
-            if isinstance(img, str):
-                raise NotImplementedError(
-                    "reading image files needs an image decoder; pass the "
-                    "decoded frame")
-            if isinstance(img, dict):
-                images, meta = img["images"], img["meta"]
-            else:
-                images, meta = self.pre_process(img, meta)
-            batch.append(torch.as_tensor(images, dtype=torch.float32,
-                                         device=self.device))
-            b_metas.append(meta)
-        dets, emb = self.process(torch.cat(batch))
+        batch, b_metas = zip(*[self._prepare(img, meta) for img, meta
+                               in zip(images_or_frames, metas)])
+        t1 = time.perf_counter()
+        dets, emb = self.process(torch.cat(batch), b_metas[0])
+        self.timers.add("net", time.perf_counter() - t1)
 
         online_per_cam = []
         for b in range(n):
+            t0 = time.perf_counter()
             dets_b = {k: v[b: b + 1] for k, v in dets.items()}
             results = self.post_process(dets_b, b_metas[b])
+            t1 = time.perf_counter()
             online = self._track(results, emb[b][: len(results)],
                                  image_infos[b])
+            self.timers.add("post", t1 - t0)
+            self.timers.add("track", time.perf_counter() - t1)
             online_per_cam.append(materialize(online) if materialize
                                   else online)
         return online_per_cam

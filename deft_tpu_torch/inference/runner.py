@@ -27,11 +27,17 @@ The runner overlaps them:
 * A partial final chunk is padded by repeating its last frame and the pad's
   outputs are dropped (the device ring then holds pad entries: ``reset()``
   before the next sequence).
+* Under ``cfg.public_det`` the chunk is 1, and a frame whose meta carries
+  ``cur_dets`` runs ``frame_step_embed`` at those boxes' centres (uploaded
+  from a pinned buffer) on the device-warped frame: no heads, no decode,
+  only the similarity comes back, and the tracker gets the public boxes.
+  (The JAX runner warps such frames on the host; the port has no host
+  warp.)  ``cfg.embed_parity`` feeds every frame program its frame's
+  ``parity_tf``.
 
 On a CPU device (the tests) the same code runs synchronously, without pinned
-memory or events.  Not ported yet (ROADMAP.md, queue A): public detections
-(``frame_step_embed``), YUV and delta uploads, ``embed_parity``,
-``auto_tune`` and the upload modes it chooses between.
+memory or events.  Not ported yet (ROADMAP.md, queue A): YUV and delta
+uploads, ``auto_tune`` and the upload modes it chooses between.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deft_tpu_torch.inference.detector import parity_tf, public_det_centers
 from deft_tpu_torch.models.deft import new_ring, unpack_dets
 from deft_tpu_torch.ops.affine import get_affine_transform
 from deft_tpu_torch.ops.warp import separable_inverse_tf
@@ -133,14 +140,15 @@ class PipelinedRunner:
         if cfg.dataset == "nuscenes":
             raise ValueError("nuScenes samples go through Detector.run_multi "
                              "(track.py::track_nuscenes), as in test.py")
-        for flag in ("public_det", "embed_parity", "yuv_upload",
-                     "delta_upload"):
+        for flag in ("yuv_upload", "delta_upload"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"{flag} {_LATER}")
         self.det = detector
         self.cfg = cfg
         self.depth = depth
-        self.chunk = max(1, chunk)
+        # public frames interleave their centres' uploads with the ring
+        # state: one frame per dispatch (runner.py:117-119)
+        self.chunk = 1 if cfg.public_det else max(1, chunk)
         self.device = detector.device
         self.sim_window = (freshness_window(cfg.dataset) + 2
                            if cfg.sim_window < 0 else cfg.sim_window)
@@ -152,6 +160,7 @@ class PipelinedRunner:
         on_card = self.device.type == "cuda"
         self._slabs = _HostBuffers(pinned=on_card)
         self._fetch_bufs = _HostBuffers(pinned=on_card)
+        self._center_bufs = _HostBuffers(pinned=on_card)
         self._t_lock = threading.Lock()
         self.buckets: Dict[str, float] = {}
         self._frames_done = 0
@@ -243,6 +252,9 @@ class PipelinedRunner:
                       if meta and "calib" in meta
                       else self.det._default_calib(width, height)),
         }
+        for key in ("pre_dets", "cur_dets"):
+            if meta and key in meta:
+                frame_meta[key] = meta[key]
         return frame, frame_meta
 
     def submit(self, image_bgr: np.ndarray, meta: Optional[dict] = None):
@@ -329,9 +341,14 @@ class PipelinedRunner:
         self._acc("upload", time.perf_counter() - t0)
 
         t0 = time.perf_counter()
+        if self.cfg.public_det and "cur_dets" in metas[0]:
+            self._pending.append(self._dispatch_public(images, metas[0]))
+            self._acc("dispatch", time.perf_counter() - t0)
+            return
         model = self.det.model
         kw = dict(k=self.cfg.K, class_filter=self.class_filter,
                   sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,
+                  parity_tf=self._parity_tf(metas[0]),
                   warp_tf=metas[0]["warp_tf"],
                   warp_out=(metas[0]["inp_height"], metas[0]["inp_width"]))
         if self.chunk == 1:
@@ -343,10 +360,37 @@ class PipelinedRunner:
                        else model.frame_chunk)
             packed, sims = program(images, self.state, self.cfg.out_thresh,
                                    **kw)
-        item = self._fetch(packed[:n_real], sims[:n_real])
+        item = self._fetch(sims[:n_real], packed[:n_real])
         item["metas"] = metas
         self._pending.append(item)
         self._acc("dispatch", time.perf_counter() - t0)
+
+    def _parity_tf(self, frame_meta: dict):
+        """The frame programs' ``parity_tf`` under ``cfg.embed_parity``
+        (runner.py:391-406), else None."""
+        return parity_tf(frame_meta) if self.cfg.embed_parity else None
+
+    def _dispatch_public(self, images: torch.Tensor, frame_meta: dict) -> dict:
+        """One public frame (runner.py:427-444): its first max_object
+        boxes' centres go up from a pinned buffer, ``frame_step_embed``
+        embeds the device-warped frame there and writes the ring, and only
+        the similarity comes back."""
+        cur_dets = list(frame_meta["cur_dets"])[: self.cfg.max_object]
+        centers, n = public_det_centers(cur_dets, frame_meta,
+                                        self.cfg.max_object,
+                                        self.cfg.embed_parity)
+        host = self._center_bufs.take(centers.shape, torch.float32)
+        np.copyto(host.numpy(), centers)
+        dev_centers = host.to(self.device, non_blocking=True)
+        self._center_bufs.give(host, self._record_event())
+        sims = self.det.model.frame_step_embed(
+            images, dev_centers, n, self.state,
+            sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,
+            warp_tf=frame_meta["warp_tf"],
+            warp_out=(frame_meta["inp_height"], frame_meta["inp_width"]))
+        item = self._fetch(sims[None])
+        item["public"] = cur_dets
+        return item
 
     def _record_event(self):
         if self.device.type != "cuda":
@@ -355,9 +399,13 @@ class PipelinedRunner:
         event.record()
         return event
 
-    def _fetch(self, packed: torch.Tensor, sims: torch.Tensor) -> dict:
+    def _fetch(self, sims: torch.Tensor,
+               packed: Optional[torch.Tensor] = None) -> dict:
         """One copy of a dispatch's outputs to the host: packed [T, L]
-        float32 and sims [T, ...] joined as bytes on the device."""
+        float32 (none for a public frame) and sims [T, ...] joined as bytes
+        on the device."""
+        if packed is None:
+            packed = sims.new_zeros((0,), dtype=torch.float32)
         blob = torch.cat([packed.reshape(-1).view(torch.uint8),
                           sims.reshape(-1).view(torch.uint8)])
         host = self._fetch_bufs.take((blob.numel(),), torch.uint8)
@@ -400,19 +448,27 @@ class PipelinedRunner:
         sims = raw[n_packed:].view(item["sims_dtype"]).reshape(
             item["sims_shape"])
         try:
+            if "public" in item:
+                return [self._finish_frame(None, sims[0], None,
+                                           item["public"])]
             return [self._finish_frame(packed[t], sims[t], meta)
                     for t, meta in enumerate(item["metas"])]
         finally:
             self._fetch_bufs.give(item["host"])
 
-    def _finish_frame(self, packed: np.ndarray, sims: np.ndarray,
-                      meta: dict) -> List:
+    def _finish_frame(self, packed: Optional[np.ndarray], sims: np.ndarray,
+                      meta: Optional[dict], public=None) -> List:
+        """Post-process one frame's packed detections, or take its public
+        ones (runner.py:480-492), then run the tracker on its sims."""
         t0 = time.perf_counter()
-        dets, n_valid = unpack_dets(packed, self._layout, self.cfg.K)
-        results = self.det.post_process(dets, meta)
-        if self.cfg.dataset == "kitti_tracking":
-            results = [d for d in results if d["class"] == 2]
-        results = results[:n_valid]
+        if public is not None:
+            results = public
+        else:
+            dets, n_valid = unpack_dets(packed, self._layout, self.cfg.K)
+            results = self.det.post_process(dets, meta)
+            if self.cfg.dataset == "kitti_tracking":
+                results = [d for d in results if d["class"] == 2]
+            results = results[:n_valid]
         t1 = time.perf_counter()
         self._acc("casc_post", t1 - t0)
         sims = (sims.astype(np.float32) / 255.0 if sims.dtype == np.uint8

@@ -10,17 +10,22 @@ Entry points, with the JAX layouts at their boundary:
 
 * ``forward(image)`` -> ``({head: [B, H/4, W/4, C]}, feature_maps[13])``;
   ``image`` is NHWC as in the JAX package, feature maps stay NCHW;
-* ``detect(image, k)`` -> sigmoided + decoded top-K detections (the depth
-  head decoded to metres) and their AFE embeddings, for any batch (the
-  nuScenes rig runs its cameras as one batch; no ``flip_test``, no
-  ``parity_tf`` yet);
+* ``trunk(image)`` -> ``(head input, feature_maps[13])``, the forward
+  without the head towers;
+* ``detect(image, k, parity_tf)`` -> sigmoided + decoded top-K detections
+  (the depth head decoded to metres) and their AFE embeddings, for any batch
+  (the nuScenes rig runs its cameras as one batch; no ``flip_test`` yet);
+* ``embed_image(image, centers)`` -> the AFE embeddings at given centres
+  (public detections: no heads, no decode);
 * ``extract`` and ``window_similarity`` re-export the AFE head;
 * the fused per-frame tracking programs ``frame_step``, ``frame_chunk`` and
   ``frame_chunk_batched`` (``deft_tpu/models/deft.py:319-576``): device warp
   of the raw uint8 frame, detect, the valid-detection prefix, the AFE
   similarity against the ``sim_window`` freshest slots of the embedding ring
   and the conditional ring write, with every detection field packed into one
-  float32 vector (``pack_dets``) and the similarity in float16 (or uint8).
+  float32 vector (``pack_dets``) and the similarity in float16 (or uint8);
+  ``frame_step_embed`` is the public-detection frame: device warp, trunk,
+  embeddings at the given centres, the same similarity and ring write.
 
 The ring state ``{"embeds" [W, M, E] float32, "counts" [W] int32, "ptr" []
 int64}`` is a dict of device tensors that the frame programs update in place
@@ -136,10 +141,14 @@ class DEFTNet(DLASeg):
     def embed_dim(self) -> int:
         return self.AFE.embed_dim
 
+    def trunk(self, image: torch.Tensor):
+        """image [B, H, W, 3] -> (the heads' NCHW input, 13 NCHW maps): the
+        ``DLASeg`` forward without the head towers."""
+        return super().forward(image.permute(0, 3, 1, 2).contiguous())
+
     def forward(self, image: torch.Tensor):
         """image [B, H, W, 3] -> ({head: [B, H/4, W/4, C]}, 13 NCHW maps)."""
-        y, feature_maps = super().forward(
-            image.permute(0, 3, 1, 2).contiguous())
+        y, feature_maps = self.trunk(image)
         outputs = {h: getattr(self, h)(y).float().permute(0, 2, 3, 1)
                    for h in self.heads}
         return outputs, feature_maps
@@ -151,13 +160,20 @@ class DEFTNet(DLASeg):
         return self.AFE.window_similarity(window_embeds, window_counts,
                                           e_next, n_next)
 
-    def detect(self, image: torch.Tensor, k: int = 100):
+    def detect(self, image: torch.Tensor, k: int = 100, parity_tf=None):
         """forward -> sigmoid -> decode -> embedding extract.
 
         Returns (dets, embeddings): dets is a dict of [B, K, ...] decoded
         tensors in output-grid coordinates; embeddings [B, K, E] are sampled
         at the decoded (amodal) box centers, normalized to [-1, 1] over the
         output grid.
+
+        ``parity_tf`` ([8] host float32: the inverse-affine rows a00, a01,
+        a02, a10, a11, a12, then the original width and height) samples
+        instead where the reference does: each centre mapped back to
+        original pixels and normalized by the original dims
+        (``deft_tpu/models/deft.py:249-257``), although the feature maps
+        live in the warped input frame.
         """
         outputs, feature_maps = self(image)
         outputs["hm"] = clamped_sigmoid(outputs["hm"])
@@ -172,11 +188,31 @@ class DEFTNet(DLASeg):
         else:
             cts = torch.stack([(bboxes[..., 0] + bboxes[..., 2]) / 2.0,
                                (bboxes[..., 1] + bboxes[..., 3]) / 2.0], dim=-1)
-        out_h = image.shape[1] // 4
-        out_w = image.shape[2] // 4
-        centers = torch.stack([2.0 * cts[..., 0] / out_w - 1.0,
-                               2.0 * cts[..., 1] / out_h - 1.0], dim=-1)
+        if parity_tf is not None:
+            # float32 scalars, as the JAX program's [8] operand, that need
+            # no copy to the device
+            tf = [float(v) for v in np.asarray(parity_tf, np.float32).ravel()]
+            xi = cts[..., 0] * 4.0          # input-frame pixels
+            yi = cts[..., 1] * 4.0
+            xo = tf[0] * xi + tf[1] * yi + tf[2]
+            yo = tf[3] * xi + tf[4] * yi + tf[5]
+            centers = torch.stack([2.0 * xo / tf[6] - 1.0,
+                                   2.0 * yo / tf[7] - 1.0], dim=-1)
+        else:
+            out_h = image.shape[1] // 4
+            out_w = image.shape[2] // 4
+            centers = torch.stack([2.0 * cts[..., 0] / out_w - 1.0,
+                                   2.0 * cts[..., 1] / out_h - 1.0], dim=-1)
         return dets, self.extract(feature_maps, centers)
+
+    def embed_image(self, image: torch.Tensor, centers: torch.Tensor):
+        """The trunk, then the AFE embeddings at given centres: the
+        public-detection path (``deft_tpu/models/deft.py:267-280``), where
+        the boxes come from a file and the model's heads and decode do not
+        run.  image [B, H, W, 3] uint8 or normalized; centers [B, N, 2] in
+        [-1, 1] -> [B, N, E]."""
+        _, feature_maps = self.trunk(self._maybe_normalize(image))
+        return self.extract(feature_maps, centers)
 
     # ---- fused per-frame tracking programs -----------------------------------
 
@@ -268,14 +304,16 @@ class DEFTNet(DLASeg):
     def frame_step(self, image: torch.Tensor, state, out_thresh: float,
                    k: int = 100, class_filter: int = -1,
                    sims_quant: bool = False, sim_window: int = 0,
-                   warp_tf=None, warp_out=None):
+                   parity_tf=None, warp_tf=None, warp_out=None):
         """One frame of tracking on the device (``deft_tpu/models/
         deft.py:403-455``): image [1, H, W, 3] (raw uint8 with ``warp_tf``
         and ``warp_out``, else uint8 or normalized at the input size) ->
-        (packed dets, sims); the ring in ``state`` is updated in place."""
+        (packed dets, sims); the ring in ``state`` is updated in place.
+        ``parity_tf`` as ``detect``'s."""
         if warp_tf is not None:
             image = self._warp_normalize(image, warp_tf, warp_out)
-        dets, emb = self.detect(self._maybe_normalize(image), k=k)
+        dets, emb = self.detect(self._maybe_normalize(image), k=k,
+                                parity_tf=parity_tf)
         return self._frame_tail({key: v[0] for key, v in dets.items()},
                                 emb[0], state, out_thresh, class_filter,
                                 sims_quant, sim_window)
@@ -284,16 +322,18 @@ class DEFTNet(DLASeg):
     def frame_chunk(self, images: torch.Tensor, state, out_thresh: float,
                     k: int = 100, class_filter: int = -1,
                     sims_quant: bool = False, sim_window: int = 0,
-                    warp_tf=None, warp_out=None):
+                    parity_tf=None, warp_tf=None, warp_out=None):
         """``frame_step`` over a chunk [T, H, W, 3] in frame order
         (``deft_tpu/models/deft.py:492-523``; a loop where the JAX package
-        scans), after one batched warp.  Returns (packed [T, L], sims [T,
-        ...])."""
+        scans), after one batched warp.  One ``parity_tf`` serves the chunk,
+        which is exact under fix_res (one geometry for every frame).
+        Returns (packed [T, L], sims [T, ...])."""
         if warp_tf is not None:
             images = self._warp_normalize(images, warp_tf, warp_out)
         outs = [self.frame_step(images[t: t + 1], state, out_thresh, k=k,
                                 class_filter=class_filter,
-                                sims_quant=sims_quant, sim_window=sim_window)
+                                sims_quant=sims_quant, sim_window=sim_window,
+                                parity_tf=parity_tf)
                 for t in range(images.shape[0])]
         return _stack(outs)
 
@@ -301,18 +341,41 @@ class DEFTNet(DLASeg):
     def frame_chunk_batched(self, images: torch.Tensor, state,
                             out_thresh: float, k: int = 100,
                             class_filter: int = -1, sims_quant: bool = False,
-                            sim_window: int = 0, warp_tf=None, warp_out=None):
+                            sim_window: int = 0, parity_tf=None,
+                            warp_tf=None, warp_out=None):
         """``frame_chunk`` with one batched ``detect`` over the chunk, then
         the tail per frame in frame order (``deft_tpu/models/
         deft.py:525-576``)."""
         if warp_tf is not None:
             images = self._warp_normalize(images, warp_tf, warp_out)
-        dets, emb = self.detect(self._maybe_normalize(images), k=k)
+        dets, emb = self.detect(self._maybe_normalize(images), k=k,
+                                parity_tf=parity_tf)
         outs = [self._frame_tail({key: v[t] for key, v in dets.items()},
                                  emb[t], state, out_thresh, class_filter,
                                  sims_quant, sim_window)
                 for t in range(images.shape[0])]
         return _stack(outs)
+
+    @torch.no_grad()
+    def frame_step_embed(self, image: torch.Tensor, centers: torch.Tensor,
+                         n_dets, state, sims_quant: bool = False,
+                         sim_window: int = 0, warp_tf=None, warp_out=None):
+        """One public-detection frame on the device (``deft_tpu/models/
+        deft.py:370-388``): the trunk, the embeddings at the given centres,
+        the similarity against the ring and the conditional ring write; no
+        heads, no decode.  image as ``frame_step``'s; centers [max_object,
+        2] in [-1, 1], zero-padded; n_dets an int or an int32 tensor, cut
+        to max_object.  Returns the sims; the ring in ``state`` is updated
+        in place (a frame of 0 detections is not written)."""
+        if warp_tf is not None:
+            image = self._warp_normalize(image, warp_tf, warp_out)
+        emb = self.embed_image(image, centers[None])[0]
+        if not torch.is_tensor(n_dets):
+            n_dets = torch.full((), n_dets, dtype=torch.int32,
+                                device=emb.device)
+        n_valid = n_dets.clamp(max=self.max_object).int()
+        return self._sim_and_record(emb, n_valid, state, sims_quant,
+                                    sim_window)
 
 
 def _stack(outs: List[Tuple[torch.Tensor, torch.Tensor]]):

@@ -9,6 +9,9 @@ submission.
   (``cls_default=2`` on KITTI, ``test.py:184, :204``);
 * ``track_videos_detector`` is the same loop through ``Detector.run``, one
   frame at a time (``test.py``'s path without a runner);
+* both take ``public_dets`` ({image id: [det dicts]}, from
+  ``data/public_dets.py``) for ``cfg.public_det``: each frame's boxes go in
+  as ``meta["cur_dets"]`` (``test.py:181-182``);
 * ``track_nuscenes`` drives ``Detector.run_multi`` over nuScenes scenes the
   way ``test.py:134-170`` does: each scene's frames in sample-major order,
   every sample's cameras as one batch;
@@ -29,7 +32,7 @@ from __future__ import annotations
 import os
 from collections import defaultdict
 from itertools import groupby
-from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -75,17 +78,26 @@ def tracks_to_results(online, cls_default: int = 1) -> List[dict]:
 Video = Tuple[object, Sequence[Tuple[int, np.ndarray]]]
 
 
-def track_videos(runner, videos: Iterable[Video],
-                 cls_default: int = 1) -> Dict[int, List[dict]]:
+def _frame_meta(public_dets: Optional[Mapping[int, Sequence[dict]]],
+                image_id) -> Optional[dict]:
+    if public_dets is not None and image_id in public_dets:
+        return {"cur_dets": public_dets[image_id]}
+    return None
+
+
+def track_videos(runner, videos: Iterable[Video], cls_default: int = 1,
+                 public_dets: Optional[Mapping[int, Sequence[dict]]] = None
+                 ) -> Dict[int, List[dict]]:
     """``videos``: (video id, [(image id, decoded BGR frame), ...] in frame
-    order) pairs.  Returns {image id: submission items}."""
+    order) pairs; ``public_dets``: {image id: public detections}.  Returns
+    {image id: submission items}."""
     results: Dict[int, List[dict]] = {}
     for _, frames in videos:
         runner.reset()
         pending: List[int] = []
         for image_id, image in frames:
             pending.append(image_id)
-            done = runner.submit(image)
+            done = runner.submit(image, _frame_meta(public_dets, image_id))
             if done is None:
                 continue
             for tracks in (done if runner.chunk > 1 else [done]):
@@ -96,8 +108,10 @@ def track_videos(runner, videos: Iterable[Video],
     return results
 
 
-def track_videos_detector(detector, videos: Iterable[Video],
-                          cls_default: int = 1) -> Dict[int, List[dict]]:
+def track_videos_detector(
+        detector, videos: Iterable[Video], cls_default: int = 1,
+        public_dets: Optional[Mapping[int, Sequence[dict]]] = None
+) -> Dict[int, List[dict]]:
     """``track_videos`` through ``Detector.run``: trackers reset per
     sequence, one ``run`` per frame.  A frame may be a decoded BGR frame or
     ``run``'s prefetched ``{"images", "meta"}`` form."""
@@ -105,8 +119,8 @@ def track_videos_detector(detector, videos: Iterable[Video],
     for _, frames in videos:
         detector.reset_tracking()
         for image_id, image in frames:
-            results[image_id] = tracks_to_results(detector.run(image),
-                                                  cls_default)
+            online = detector.run(image, _frame_meta(public_dets, image_id))
+            results[image_id] = tracks_to_results(online, cls_default)
     return results
 
 

@@ -1,0 +1,527 @@
+"""Public detections (``public_det``, ``embed_parity``): the port against the
+JAX package on the CPU.
+
+MOTChallenge's public-detection protocol hands the tracker boxes from a
+det file; the network only embeds the frame at their centres.  ``mot_config``
+at 64x128 (max_object 8, K 16, ``dcn_offset_range`` 1) with the port's
+seeded init (carried into the JAX package by its checkpoint converter),
+every offset conv randomized (fractional samples past the radius) and the
+heatmap head rescaled so that a frame without public boxes still finds
+objects on the model path.  ``dcn_impl="pallas"`` runs the JAX T2 kernel in
+interpret mode, as ``tests/test_torch_port_kitti.py`` does; its bf16
+rounding of each DCN input is held with PALLAS_RTOL (``tests/
+test_torch_port_dcn_impl.py``'s tolerance for that path).  Each JAX
+program compiles once for the file: compiles are most of its time.
+
+Per module: ``public_det_centers`` in both modes on ``tests/
+test_public_det.py``'s 270x480 -> 128x160 geometry; ``embed_image``;
+``detect`` under ``parity_tf``; ``frame_step_embed`` with its ring; the
+public ``Detector.run`` and runner as wholes; ``data/public_dets.py``
+against ``tools/convert_mot_det_to_results.py``; the refusals that stay.
+"""
+
+import functools
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deft_tpu.ops.pallas_dcn as pallas_dcn
+from deft_tpu.config import mot_config
+from deft_tpu.inference.detector import Detector as JaxDetector
+from deft_tpu.inference.detector import (
+    public_det_centers as jax_public_det_centers,
+)
+from deft_tpu.inference.runner import PipelinedRunner as JaxRunner
+from deft_tpu.models import create_model as jax_create_model
+from deft_tpu.models.dla import DLA_PLANS
+from deft_tpu.train.torch_convert import TorchConverter
+from deft_tpu_torch.config import mot_config as port_mot_config
+from deft_tpu_torch.convert import from_jax_variables
+from deft_tpu_torch.data.public_dets import public_dets
+from deft_tpu_torch.inference.detector import (
+    Detector,
+    parity_tf,
+    public_det_centers,
+)
+from deft_tpu_torch.inference.runner import PipelinedRunner
+from deft_tpu_torch.models.deft import new_ring
+from deft_tpu_torch.models.factory import create_model
+from deft_tpu_torch.track import track_videos, track_videos_detector
+from deft_tpu_torch.tracking.basetrack import IdAllocator
+from deft_tpu_torch.tracking.tracker import freshness_window
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+sys.path.insert(0, ROOT)
+from tools import convert_mot_det_to_results  # noqa: E402
+
+SIZE = dict(input_h=64, input_w=128, max_object=8, K=16, dcn_offset_range=1)
+FRAMES = 6
+EMB_TOL = 1e-4            # float32 embeddings of the two packages, absolute
+PALLAS_RTOL = 2e-4        # T2: |a - b| <= rtol * (|b| + max|b|)
+BOX_TOL = 1e-3            # pixels
+SIM_WINDOW = freshness_window("mot") + 2
+# (y, x, h, w, colour, (vy, vx)) at 120x240; a frame at 64x128 scales them
+OBJECTS = [(10, 20, 30, 50, (250, 40, 40), (2, 3)),
+           (60, 150, 25, 45, (30, 220, 60), (-1, -4)),
+           (30, 90, 35, 35, (40, 60, 240), (3, 1)),
+           (70, 30, 20, 60, (230, 230, 30), (-2, 2))]
+
+
+def scene(h, w, n=FRAMES):
+    """Moving rectangles on noise: (uint8 BGR frames, per frame the
+    rectangles' tlbr boxes in that frame's pixels)."""
+    rng = np.random.RandomState(0)
+    sy, sx = h / 120.0, w / 240.0
+    frames, boxes = [], []
+    for f in range(n):
+        img = rng.randint(0, 40, (h, w, 3)).astype(np.uint8)
+        fb = []
+        for y, x, bh, bw, col, (vy, vx) in OBJECTS:
+            y0, x0 = int((y + vy * f) * sy), int((x + vx * f) * sx)
+            y1, x1 = y0 + int(bh * sy), x0 + int(bw * sx)
+            img[max(y0, 0): y1, max(x0, 0): x1] = col
+            fb.append([float(x0), float(y0), float(x1), float(y1)])
+        frames.append(img)
+        boxes.append(fb)
+    return frames, boxes
+
+
+def public(boxes, h, w, seed=1):
+    """Per frame its public detections, as det files give them: every
+    rectangle jittered by up to 3% of its size, plus false positives.
+    Frame 1 has 10 (> max_object), frame 2 none, frame 3 no ``cur_dets``
+    at all (the model path)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for f, fb in enumerate(boxes):
+        dets = []
+        for b in fb:
+            b = np.asarray(b)
+            size = np.tile(b[2:] - b[:2], 2)
+            b = b + rng.uniform(-0.03, 0.03, 4) * size
+            dets.append(b)
+        n_extra = {1: 6}.get(f, 1)
+        for _ in range(n_extra):
+            x, y = rng.uniform(0, 0.9, 2) * [w, h]
+            dets.append(np.array([x, y, x + 0.05 * w, y + 0.1 * h]))
+        items = [{"bbox": [float(v) for v in d],
+                  "score": float(rng.uniform(0.6, 1.0)), "class": 1,
+                  "ct": [float(d[0] + d[2]) / 2, float(d[1] + d[3]) / 2]}
+                 for d in dets]
+        out.append({2: [], 3: None}.get(f, items))
+    return out
+
+
+def _meta(dets):
+    return {} if dets is None else {"cur_dets": dets}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The port's seeded init carried into the JAX package by its own
+    checkpoint converter (the JAX init would take ~15 s here), every offset
+    conv randomized, the heatmap head rescaled on the first frame."""
+    cfg = mot_config(public_det=True, **SIZE)
+    pcfg = port_mot_config(public_det=True, **SIZE)
+    torch.manual_seed(0)
+    init = {k: v.numpy() for k, v in create_model(
+        pcfg.arch, pcfg, "cpu").state_dict().items()}
+    params, stats = TorchConverter(cfg.dataset).convert_dla34(
+        init, cfg.heads, cfg.dla_node, DLA_PLANS["34"][0])
+    variables = {"params": params, "batch_stats": stats}
+    rng = np.random.RandomState(11)
+
+    def randomize(tree):
+        for key, v in tree.items():
+            if key == "conv_offset_mask":
+                v["kernel"] = rng.normal(0, 0.01, v["kernel"].shape
+                                         ).astype(np.float32)
+                v["bias"] = rng.uniform(-1.0, 1.0, v["bias"].shape
+                                        ).astype(np.float32)
+            elif isinstance(v, dict):
+                randomize(v)
+
+    randomize(variables["params"])
+    model = jax_create_model(cfg.arch, cfg)
+    # 100x240 frames into the 64x128 input: the fix_res warp pads them above
+    # and below, so the parity centres differ from the input-frame ones
+    frames, boxes = scene(100, 240)
+    dets = public(boxes, 100, 240)
+    jdet = JaxDetector(cfg, model=model, variables=variables)
+    inputs = [dict(zip(("images", "meta"), jdet.pre_process(f, 1.0, _meta(d))))
+              for f, d in zip(frames, dets)]
+    # random weights give a flat heatmap far below the threshold: rescale
+    # the head so ~4% of the first frame's pixels score above 0.5 (its
+    # spread read with the bias at 0: about the -4.6 prior it is below
+    # float32's resolution)
+    hm = variables["params"]["head_hm"]["out"]
+    hm["bias"] = np.zeros_like(hm["bias"])
+    port = Detector(pcfg, from_jax_variables(variables, cfg), device="cpu")
+    with torch.no_grad():
+        out, _ = port.model(torch.from_numpy(inputs[0]["images"]))
+    z = out["hm"].numpy()
+    gain = 2.0 / z.std()
+    hm["kernel"] = (hm["kernel"] * gain).astype(np.float32)
+    hm["bias"] = ((hm["bias"] - np.percentile(z, 96)) * gain).astype(np.float32)
+    sd = from_jax_variables(variables, cfg)
+    return {"cfg": cfg, "model": model, "variables": variables, "sd": sd,
+            "pcfg": pcfg, "pdet": Detector(pcfg, sd, device="cpu"),
+            "jdet": JaxDetector(cfg, model=model, variables=variables),
+            "inputs": inputs, "dets": dets}
+
+
+# ---- public_det_centers -------------------------------------------------------
+
+@pytest.mark.parametrize("embed_parity", [False, True])
+def test_public_det_centers_match_jax(embed_parity):
+    """``tests/test_public_det.py``'s geometry: a 270x480 frame into a
+    128x160 input (the fix_res warp crops its sides), boxes in original
+    pixels, one past max_object."""
+    from deft_tpu.ops.affine import get_affine_transform
+
+    h, w, inp_h, inp_w = 270, 480, 128, 160
+    c = np.array([w / 2.0, h / 2.0], np.float32)
+    s = max(h, w) * 1.0
+    meta = {"trans_input": get_affine_transform(c, s, 0, [inp_w, inp_h]),
+            "height": h, "width": w, "inp_height": inp_h, "inp_width": inp_w}
+    rng = np.random.RandomState(3)
+    dets = [{"bbox": [x, y, x + bw, y + bh]}
+            for x, y, bw, bh in rng.uniform([0, 0, 4, 4], [440, 230, 40, 40],
+                                            (5, 4))]
+    dets.insert(0, {"bbox": [w / 2 - 10, h / 2 - 10, w / 2 + 10, h / 2 + 10]})
+    got, n = public_det_centers(dets, meta, 4, embed_parity)
+    want, n_want = jax_public_det_centers(dets, meta, 4, embed_parity)
+    assert got.dtype == np.float32 and got.shape == (4, 2) and n == n_want == 4
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    if not embed_parity:       # the image centre is the input's centre
+        np.testing.assert_allclose(got[0], [0.0, 0.0], atol=1e-2)
+    got, n = public_det_centers(dets[:2], meta, 4, embed_parity)
+    assert n == 2 and np.all(got[2:] == 0)
+
+
+# ---- the model's entry points ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pallas_runs(setup):
+    """``dcn_impl="pallas"`` on both sides, the JAX T2 kernel in interpret
+    mode: the JAX public runner over 6 frames at the input size (its
+    jitted ``frame_step_embed`` compiled once), and through that program
+    the JAX embeddings of frame 1's boxes (its ring row 0 after one step
+    on an empty ring)."""
+    frames, boxes = scene(SIZE["input_h"], SIZE["input_w"])
+    dets = public(boxes, SIZE["input_h"], SIZE["input_w"], seed=2)
+    dets[3] = dets[4]                  # every frame public here
+    cfg = setup["cfg"].replace(dcn_impl="pallas")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pallas_dcn, "deform_conv_pallas_tap", functools.partial(
+            pallas_dcn.deform_conv_pallas_tap, interpret=True))
+        jrun = JaxRunner(JaxDetector(cfg, model=jax_create_model(cfg.arch,
+                                                                 cfg),
+                                     variables=setup["variables"]),
+                         depth=2, chunk=4)
+        empty = jax.tree.map(jnp.zeros_like, jrun.state)
+        want = [[(t.track_id, np.asarray(t.tlbr)) for t in online]
+                for online in jrun.track_sequence(
+                    frames, [_meta(d) for d in dets])]
+        warped, meta = jrun.warp(frames[1], _meta(dets[1]))
+        centers, n = public_det_centers(dets[1], meta, SIZE["max_object"])
+        _, state = jrun._step_embed(setup["variables"], jnp.asarray(warped),
+                                    jnp.asarray(centers), jnp.int32(n),
+                                    empty)
+    prun = PipelinedRunner(Detector(setup["pcfg"].replace(dcn_impl="pallas"),
+                                    setup["sd"], device="cpu"),
+                           depth=2, chunk=4)
+    return {"frames": frames, "dets": dets, "jrun": jrun, "prun": prun,
+            "want": want, "emb": (warped, centers, n,
+                                  np.asarray(state["embeds"][0][:n]))}
+
+
+@pytest.mark.parametrize("impl", ["hybrid", "pallas"])
+def test_embed_image_matches_jax(setup, pallas_runs, impl):
+    """The trunk and the AFE at public centres (ten boxes, eight of which
+    fit): hybrid float32 within EMB_TOL against the JAX ``embed_image``,
+    pallas within PALLAS_RTOL against the embeddings the JAX public
+    runner's program writes into its ring."""
+    if impl == "hybrid":
+        inp = setup["inputs"][1]
+        image = inp["images"]
+        centers, n = public_det_centers(setup["dets"][1], inp["meta"],
+                                        SIZE["max_object"])
+        want = np.asarray(setup["jdet"]._embed(
+            setup["variables"], jnp.asarray(image),
+            jnp.asarray(centers[None])))[0]
+        port = setup["pdet"].model
+    else:
+        warped, centers, n, want = pallas_runs["emb"]
+        image = warped[None]
+        port = pallas_runs["prun"].det.model
+    assert n == SIZE["max_object"]
+    with torch.no_grad():
+        got = port.embed_image(torch.from_numpy(image),
+                               torch.from_numpy(centers[None]))[0].numpy()
+    assert got.shape == (n, port.embed_dim) and want.shape[0] == n
+    want = want[:n]
+    if impl == "hybrid":
+        np.testing.assert_allclose(got, want, rtol=0, atol=EMB_TOL)
+    else:
+        assert (np.abs(got - want)
+                <= PALLAS_RTOL * (np.abs(want) + np.abs(want).max())).all()
+
+
+def test_detect_parity_tf_matches_jax(setup):
+    """``detect`` under ``parity_tf`` (the reference's original-dims
+    normalization): decoded boxes within BOX_TOL, embeddings within
+    EMB_TOL.  They equal ``embed_image`` at the parity centres computed on
+    the host, and differ from the default sampling (the frames are not the
+    input's aspect)."""
+    inp = setup["inputs"][0]
+    meta = inp["meta"]
+    ptf = parity_tf(meta)
+    want_dets, want_emb = setup["model"].apply(
+        setup["variables"], jnp.asarray(inp["images"]), k=SIZE["K"],
+        parity_tf=jnp.asarray(ptf), method="detect")
+    model = setup["pdet"].model
+    image = torch.from_numpy(inp["images"])
+    with torch.no_grad():
+        dets, emb = model.detect(image, k=SIZE["K"], parity_tf=ptf)
+        _, emb_default = model.detect(image, k=SIZE["K"])
+    np.testing.assert_allclose(dets["bboxes"].numpy(),
+                               np.asarray(want_dets["bboxes"]), rtol=0,
+                               atol=BOX_TOL / 4)   # output cells: 4 px each
+    np.testing.assert_allclose(emb.numpy(), np.asarray(want_emb), rtol=0,
+                               atol=EMB_TOL)
+
+    # the parity centres on the host: input pixels -> original pixels ->
+    # normalized by the original dims
+    bb = dets["bboxes"][0].numpy().astype(np.float64)
+    cts = np.stack([(bb[:, 0] + bb[:, 2]) / 2, (bb[:, 1] + bb[:, 3]) / 2],
+                   -1) * 4.0
+    orig = np.concatenate([cts, np.ones((len(cts), 1))], 1) @ ptf[:6].reshape(
+        2, 3).astype(np.float64).T
+    centers = np.stack([2 * orig[:, 0] / meta["width"] - 1,
+                        2 * orig[:, 1] / meta["height"] - 1], -1)
+    with torch.no_grad():
+        ref = model.embed_image(image, torch.from_numpy(
+            centers[None].astype(np.float32)))
+    np.testing.assert_allclose(emb.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+    assert not np.allclose(emb.numpy(), emb_default.numpy(), atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def jax_step_embed(setup):
+    """Four frames of the JAX ``frame_step_embed`` (hybrid) from an empty
+    ring: per frame (its sims, the ring after it).  Frame 1 has ten boxes
+    (cut to max_object), frames 2 and 3 none."""
+    m = SIZE["max_object"]
+    e = setup["pdet"].model.embed_dim
+    state = {"embeds": jnp.zeros((50, m, e), jnp.float32),
+             "counts": jnp.zeros((50,), jnp.int32), "ptr": jnp.int32(0)}
+    step = jax.jit(lambda v, img, c, n, s: setup["model"].apply(
+        v, img, c, n, s, sim_window=SIM_WINDOW, method="frame_step_embed"))
+    out = []
+    for f in range(4):
+        inp, dets = setup["inputs"][f], setup["dets"][f] or []
+        centers, _ = public_det_centers(dets, inp["meta"], m)
+        sims, state = step(setup["variables"], jnp.asarray(inp["images"]),
+                           jnp.asarray(centers), jnp.int32(len(dets)), state)
+        out.append((np.asarray(sims), jax.tree.map(np.asarray, state)))
+    return out
+
+
+@pytest.mark.parametrize("sims_quant", [False, True])
+def test_frame_step_embed_matches_jax(setup, jax_step_embed, sims_quant):
+    """``frame_step_embed`` against the JAX program over four frames: the
+    similarity (float16 within 1e-3; under ``sims_quant`` uint8 within one
+    step of the JAX float16 quantized) and the whole ring after each.  A
+    frame of 0 boxes leaves the ring unwritten."""
+    m, model = SIZE["max_object"], setup["pdet"].model
+    state = new_ring(50, m, model.embed_dim, "cpu")
+    for f, (want, jstate) in enumerate(jax_step_embed):
+        inp, dets = setup["inputs"][f], setup["dets"][f] or []
+        centers, _ = public_det_centers(dets, inp["meta"], m)
+        got = model.frame_step_embed(
+            torch.from_numpy(inp["images"]), torch.from_numpy(centers),
+            len(dets), state, sims_quant=sims_quant, sim_window=SIM_WINDOW)
+        want = want.astype(np.float32)
+        if sims_quant:
+            assert got.dtype == torch.uint8
+            want = np.round(np.clip(want, 0, 1) * 255.0)
+        else:
+            assert got.dtype == torch.float16
+        diff = np.abs(got.numpy().astype(np.float32) - want)
+        assert diff.max() <= (1.0 if sims_quant else 1e-3), f
+        np.testing.assert_array_equal(state["counts"].numpy(),
+                                      jstate["counts"])
+        assert int(state["ptr"]) == int(jstate["ptr"]) == min(f + 1, 2)
+        np.testing.assert_allclose(state["embeds"].numpy(), jstate["embeds"],
+                                   rtol=0, atol=EMB_TOL)
+    assert state["counts"].numpy()[:3].tolist() == [5, m, 0]
+
+
+# ---- the paths as wholes ----------------------------------------------------
+
+def _canon(tracks):
+    return [(t.track_id, np.asarray(t.tlbr)) for t in tracks]
+
+
+def test_detector_run_public_matches_jax(setup):
+    """``Detector.run`` under ``public_det`` on the JAX package's
+    prefetched inputs: ids exact and boxes within BOX_TOL per frame.
+    Frame 3 carries no ``cur_dets`` and takes the model path in both."""
+    jdet, pdet = setup["jdet"], setup["pdet"]
+    jdet.reset_tracking()
+    pdet.ids = IdAllocator()          # ids from 1, as the fresh JAX one's
+    pdet.reset_tracking()
+    pdet.timers.reset()
+    n_tracks = []
+    for f, inp in enumerate(setup["inputs"]):
+        want = _canon(jdet.run(inp))
+        got = _canon(pdet.run(inp))
+        assert [i for i, _ in got] == [i for i, _ in want], f
+        for (_, a), (_, b) in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=0, atol=BOX_TOL)
+        n_tracks.append(len(got))
+    dets = setup["dets"]
+    assert all(n <= min(len(d), SIZE["max_object"])
+               for n, d in zip(n_tracks, dets) if d is not None), n_tracks
+    assert n_tracks[3] > 0 and min(n_tracks[4:]) >= 4, n_tracks
+    # the public frames ran no post stage; the model-path frame did
+    assert pdet.timers.count == {"pre": 6, "net": 6, "post": 1, "track": 6,
+                                 "tot": 6}
+
+
+def test_track_videos_detector_public(setup):
+    """``track_videos_detector(public_dets=...)`` injects each frame's
+    boxes as ``cur_dets`` into the prefetched inputs' meta."""
+    inputs = [{"images": i["images"],
+               "meta": {k: v for k, v in i["meta"].items()
+                        if k != "cur_dets"}} for i in setup["inputs"]]
+    ids = list(range(100, 100 + FRAMES))
+    by_image = {i: d for i, d in zip(ids, setup["dets"]) if d is not None}
+    pdet = setup["pdet"]
+    runs = []
+    for frames, by in ((setup["inputs"], None), (inputs, by_image)):
+        pdet.ids = IdAllocator()
+        runs.append(track_videos_detector(pdet, [(1, list(zip(ids, frames)))],
+                                          public_dets=by))
+    plain, injected = runs
+    for i in ids:
+        assert ([it["tracking_id"] for it in injected[i]]
+                == [it["tracking_id"] for it in plain[i]]), i
+        for a, b in zip(injected[i], plain[i]):
+            np.testing.assert_array_equal(a["bbox"], b["bbox"])
+    assert min(len(injected[i]) for i in ids[4:]) >= 4
+
+
+def test_runner_public_matches_jax(pallas_runs):
+    """The public runner (``dcn_impl="pallas"``) against the JAX one, both
+    asked for chunk 4 and both running chunk 1.  The frames are at the
+    input's size, so the JAX host warp and the port's device warp are both
+    the identity (asserted).  Ids exact, boxes within BOX_TOL."""
+    frames, dets = pallas_runs["frames"], pallas_runs["dets"]
+    jrun, prun = pallas_runs["jrun"], pallas_runs["prun"]
+    assert jrun.chunk == prun.chunk == 1
+    warped, meta = jrun.warp(frames[0], _meta(dets[0]))
+    np.testing.assert_array_equal(warped, frames[0])
+    assert meta["cur_dets"] is dets[0]
+    raw, pmeta = prun.warp(frames[0], _meta(dets[0]))
+    assert pmeta["cur_dets"] is dets[0]
+    model = prun.det.model
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            model._warp_normalize(torch.from_numpy(raw)[None],
+                                  pmeta["warp_tf"],
+                                  (SIZE["input_h"], SIZE["input_w"])).numpy(),
+            model._maybe_normalize(torch.from_numpy(frames[0])[None]).numpy())
+
+    ids = list(range(FRAMES))
+    results = track_videos(prun, [(1, list(zip(ids, frames)))],
+                           public_dets=dict(zip(ids, dets)))
+    assert len(pallas_runs["want"]) == FRAMES
+    for f, (want, i) in enumerate(zip(pallas_runs["want"], ids)):
+        got = results[i]
+        assert [it["tracking_id"] for it in got] == [t for t, _ in want], f
+        for it, (_, box) in zip(got, want):
+            np.testing.assert_allclose(it["bbox"], box, rtol=0, atol=BOX_TOL)
+        assert len(got) <= min(len(dets[f]), SIZE["max_object"])
+    assert min(len(results[i]) for i in ids[3:]) >= 4
+    keys = prun.timings()
+    assert {"dispatch", "casc_track", "cascade"} <= set(keys)
+
+
+# ---- the det-file mapping -----------------------------------------------------
+
+def test_public_dets_match_convert_tool(tmp_path, monkeypatch):
+    """``data/public_dets.py`` gives what ``tools/
+    convert_mot_det_to_results.py`` writes: two sequences, one without a
+    det file, one row without a score, half-split frame numbering."""
+    data = tmp_path / "mot17"
+    det_dir = data / "train" / "MOT17-02-FRCNN" / "det"
+    det_dir.mkdir(parents=True)
+    (data / "annotations").mkdir()
+    (det_dir / "det.txt").write_text(
+        "1,-1,10.5,20,30,60,0.93\n"
+        "1,-1,100,120,25.25,50,0.41\n"
+        "3,-1,12,22,30,61,0.88\n"
+        "4,-1,14,24,31,62,0.3\n")
+    dataset = {
+        "videos": [{"id": 1, "file_name": "MOT17-02-FRCNN"},
+                   {"id": 2, "file_name": "MOT17-04-FRCNN"}],
+        "images": [
+            {"id": 11, "video_id": 1, "frame_id": 1,
+             "file_name": "MOT17-02-FRCNN/img1/000003.jpg"},
+            {"id": 12, "video_id": 1, "frame_id": 2,
+             "file_name": "MOT17-02-FRCNN/img1/000004.jpg"},
+            {"id": 13, "video_id": 1, "frame_id": 3,
+             "file_name": "MOT17-02-FRCNN/img1/000005.jpg"},
+            {"id": 10, "video_id": 1, "frame_id": 0,
+             "file_name": "MOT17-02-FRCNN/img1/000001.jpg"},
+            {"id": 21, "video_id": 2, "frame_id": 1,
+             "file_name": "MOT17-04-FRCNN/img1/000001.jpg"}]}
+    (data / "annotations" / "val_half.json").write_text(json.dumps(dataset))
+    monkeypatch.setattr(sys, "argv", ["convert_mot_det_to_results.py",
+                                      "--data_dir", str(data)])
+    convert_mot_det_to_results.main()
+    with open(data / "annotations" / "public_dets.json") as f:
+        want = {int(k): v for k, v in json.load(f).items()}
+    got = public_dets(str(data / "annotations" / "val_half.json"), str(data))
+    assert got == want
+    assert [len(got[i]) for i in (10, 11, 12, 13, 21)] == [2, 1, 1, 0, 0]
+    (det_dir / "det.txt").write_text("2,-1,1,2,3,4\n")
+    got = public_dets(dataset, str(data))
+    assert got[10] == [] and got[11] == [] and len(got[12]) == 0
+    assert public_dets({"videos": dataset["videos"], "images": [
+        dict(dataset["images"][0], file_name="x/img1/000002.jpg")]},
+        str(data))[11][0]["score"] == 1.0
+
+
+# ---- what is ported and what still raises -------------------------------------
+
+def test_public_configs_build(setup):
+    """``public_det`` and ``embed_parity`` no longer raise in either entry
+    point; the runner under ``embed_parity`` feeds its frame programs the
+    frame's ``parity_tf``."""
+    for flags in ({"public_det": True}, {"embed_parity": True},
+                  {"public_det": True, "embed_parity": True}):
+        det = Detector(port_mot_config(**SIZE, **flags), setup["sd"],
+                       device="cpu")
+        runner = PipelinedRunner(det, chunk=4)
+        assert runner.chunk == (1 if flags.get("public_det") else 4)
+        meta = runner.warp(np.zeros((120, 240, 3), np.uint8))[1]
+        ptf = runner._parity_tf(meta)
+        assert (ptf is None) == (not flags.get("embed_parity"))
+    np.testing.assert_allclose(ptf[6:], [240, 120])
+
+
+@pytest.mark.parametrize("flag", ["debug", "flip_test", "yuv_upload"])
+def test_refusals_that_stay(setup, flag):
+    cfg = port_mot_config(public_det=True, **SIZE).replace(
+        **{flag: 1 if flag == "debug" else True})
+    with pytest.raises(NotImplementedError, match=flag):
+        PipelinedRunner(Detector(cfg, setup["sd"], device="cpu"))
