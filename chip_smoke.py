@@ -6,10 +6,10 @@
 Builds the port's CUDA kernels from ``deft_tpu_torch/csrc`` into
 ``build/kernels/`` (one nvcc per source, all at once), holds each of the four
 kernels against its plain PyTorch version at the 7 DLA-34 DCNv2 layer shapes
-of a 544x960 frame, in two offset regimes, ``dcn_sample`` also at the 7
-shapes of a 448x800 nuScenes camera and ``dcn_sample`` and
-``dcn_sample_tap`` at the 7 shapes of a 384x1280 KITTI frame, and times
-kernel, plain version and a library yardstick beside a bound.  Then it
+of a 544x960 frame, in two offset regimes and on a bf16 x, the kernels of
+the other paths also at the 7 shapes of a 448x800 nuScenes camera and of a
+384x1280 KITTI frame (``PHASE_KERNELS``), and times kernel, plain version
+and a library yardstick beside a bound.  Then it
 drives the main paths at full width (DLA-34 with DCNv2 neck, K=100,
 max_object=100, 50-slot rings) with seeded random weights:
 
@@ -38,6 +38,13 @@ max_object=100, 50-slot rings) with seeded random weights:
   and no decode may run and the track boxes must lie over public boxes
   (IoU >= 0.5 for 95% of them; PERF.md, PR 7), plus one full-width ``embed_parity`` frame (``detect``'s
   embeddings equal ``embed_image`` at the parity centres);
+* slice 8, each recipe's ``test.py`` line of ``experiments/*.sh`` through
+  ``python -m deft_tpu_torch.test``'s ``main`` (``cli_phase``) on PNG
+  datasets of the three models, at ``--compute_dtype bfloat16`` (the
+  hybrid's ``dcn_sample`` on one sample's layers of at most 128 input
+  channels, ``dcn_sample_onehot`` on the others and on nuScenes' batch of
+  cameras, as the JAX hybrid picks on a TPU)
+  and float32, and the MOT line at bf16 with ``--dcn_impl pallas``;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -51,9 +58,9 @@ The kernel phase also checks that ``dcn_sample_tap`` on x equals
 no atomics) gives the same bits on two calls, times ``dcn_sample_tap``
 plus the GEMM that reads its patches, and gives each ``dcn_sample_onehot``
 row the tile, slice and window of its plan (``cuda_dcn.plan_onehot``).
-``dcn_fused`` and ``dcn_sample_onehot`` replace TPU kernels that nothing in
-the JAX package calls, so no path reaches them: their launches are the
-kernel phase's.  It imports nothing of JAX.
+``dcn_fused`` replaces a TPU kernel that nothing in the JAX package calls,
+so no path reaches it: its launches are the kernel phase's.  It imports
+nothing of JAX.
 
 Output: one JSON line per measurement, then the card's name and power limit
 (``nvidia-smi``), the ``{"kernels": [...]}`` line and, last, the
@@ -63,7 +70,9 @@ that last line; nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -72,19 +81,24 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import deft_tpu_torch
+from deft_tpu_torch import test as port_test
+from deft_tpu_torch.cli import parse_config
 from deft_tpu_torch.config import kitti_config, mot_config, nuscenes_config
 from deft_tpu_torch.csrc.build import BUILD_DIR, build_all
+from deft_tpu_torch.data.datasets import NUSCENES_INFO, get_dataset
+from deft_tpu_torch.data.image_io import imread, imwrite_png
 from deft_tpu_torch.data.synthetic_kitti import make_sequence
-from deft_tpu_torch.data.synthetic_nuscenes import make_scene
+from deft_tpu_torch.data.synthetic_nuscenes import make_scene, make_tables
 import deft_tpu_torch.models.deft as deft_model
 from deft_tpu_torch.inference.detector import Detector, parity_tf
 from deft_tpu_torch.inference.runner import PipelinedRunner
-from deft_tpu_torch.models.dcn import DCNv2
+from deft_tpu_torch.models.dcn import HYBRID_CM_CHANNELS, DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
 from deft_tpu_torch.track import (
@@ -97,6 +111,11 @@ from deft_tpu_torch.track import (
 )
 from deft_tpu_torch.tracking import matching, motion_lstm
 from deft_tpu_torch.tracking.basetrack import IdAllocator
+
+# the recipes' command lines, shared with the port's tests (a site package
+# named ``tests`` would shadow the repository's directory as a package)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from recipe_lines import RECIPES, recipe_test_argv, with_flags  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -233,13 +252,19 @@ def graph_times(fn, per_graph: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, n: int):
+def device_profile(fn, n: int, host_ops: bool = True):
     """``torch.profiler`` over ``fn()``, which does ``n`` units of work:
-    (device kernel ms per unit, the 12 costliest kernels per unit)."""
+    (device kernel ms per unit, the 12 costliest kernels per unit).
+    ``host_ops=False`` records the device activity alone, which a long run
+    of many small host operations needs (their events otherwise take
+    longer to collect than the run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = []
@@ -298,7 +323,8 @@ def grid_sample_yardstick(x, offsets, mask, radius):
     """The same sampling through one library call: ``grid_sample`` of the
     9-tap grid (zeros padding, corner-aligned), times the mask.  Returns the
     timed closure, whose result is [1, C, 9, H*W]; the grid is built once
-    outside it."""
+    outside it.  A bf16 x is sampled in bf16, grid and mask included
+    (``grid_sample`` takes one dtype); a yardstick of time only."""
     h, w, c = x.shape
     dev = x.device
     off = offsets.clamp(-radius, radius)
@@ -310,8 +336,11 @@ def grid_sample_yardstick(x, offsets, mask, radius):
           + kx.reshape(1, 1, 9) + off[..., 1])
     grid = torch.stack([2.0 * xx / (w - 1) - 1.0, 2.0 * yy / (h - 1) - 1.0],
                        dim=-1).permute(2, 0, 1, 3).reshape(1, 9, h * w, 2)
-    x_nchw = x.permute(2, 0, 1)[None].contiguous().float()
-    m = mask.permute(2, 0, 1).reshape(1, 1, 9, h * w)
+    x_nchw = x.permute(2, 0, 1)[None].contiguous()
+    if x.dtype != torch.bfloat16:
+        x_nchw = x_nchw.float()
+    grid = grid.to(x_nchw.dtype)
+    m = mask.permute(2, 0, 1).reshape(1, 1, 9, h * w).to(x_nchw.dtype)
 
     def run():
         s = torch.nn.functional.grid_sample(
@@ -337,7 +366,7 @@ def kernel_calls(name, x, offsets, mask, weight, bias):
 
         def library():
             patches = sample().permute(0, 3, 2, 1).reshape(h * w, 9 * c)
-            return torch.addmm(bias, patches, weight)
+            return torch.addmm(bias, patches.float(), weight)
 
         return (lambda: cuda_dcn.deform_conv_fused(*wargs),
                 lambda: cuda_dcn.deform_conv_fused_reference(*wargs),
@@ -373,25 +402,39 @@ def bitwise_checks(x, offsets, mask, weight, bias, shape):
                              f"at {shape}")
 
 
+# kernels held and timed per (model, x dtype) at every layer shape of the
+# model; dcn_fused on a bf16 x only at the largest MOT shape
+PHASE_KERNELS = {
+    ("mot", torch.float32): tuple(KERNELS),
+    ("mot", torch.bfloat16): ("dcn_sample", "dcn_sample_tap", "dcn_fused",
+                              "dcn_sample_onehot"),
+    ("kitti", torch.float32): ("dcn_sample", "dcn_sample_tap"),
+    ("kitti", torch.bfloat16): ("dcn_sample", "dcn_sample_tap",
+                                "dcn_sample_onehot"),
+    ("nuscenes", torch.float32): ("dcn_sample",),
+    ("nuscenes", torch.bfloat16): ("dcn_sample", "dcn_sample_onehot"),
+}
+
+
 def kernel_phase():
-    """Every kernel against its plain version at the 7 MOT layer shapes,
-    with 'trained' offsets and with offsets past the clamp, plus bf16 inputs
-    at the largest shape (all but T2, whose bf16 function is T1's);
-    ``dcn_sample`` (the kernel of the nuScenes path) also at the 7 nuScenes
-    shapes, and ``dcn_sample`` and ``dcn_sample_tap`` (the KITTI paths') at
-    the 7 KITTI shapes, in both regimes; the bitwise checks at every float32
-    MOT case; times and bounds per call, T2 with the GEMM that reads its
-    patches, and each kernel's plan."""
+    """Every kernel of ``PHASE_KERNELS`` against its plain version at the 7
+    layer shapes of a 544x960 MOT frame, a 448x800 nuScenes camera and a
+    384x1280 KITTI frame: on a float32 x with 'trained' offsets and with
+    offsets past the clamp, and on a bf16 x (the recipes' trunk) with
+    'trained' offsets; the bitwise checks at every float32 MOT case; times
+    and bounds per call, T2 with the GEMM that reads its patches, and each
+    kernel's plan."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
-    cases = [(shape, "trained", torch.float32, "mot") for shape in LAYERS]
-    cases += [(shape, "uniform6", torch.float32, "mot") for shape in LAYERS]
-    cases += [(LAYERS[0], "trained", torch.bfloat16, "mot")]
-    cases += [(shape, regime, torch.float32, model)
-              for model, layers in (("nuscenes", NUSCENES_LAYERS),
-                                    ("kitti", KITTI_LAYERS))
-              for regime in ("trained", "uniform6") for shape in layers]
+    cases = [(shape, regime, dtype, model)
+             for model, layers in (("mot", LAYERS),
+                                   ("nuscenes", NUSCENES_LAYERS),
+                                   ("kitti", KITTI_LAYERS))
+             for regime, dtype in (("trained", torch.float32),
+                                   ("uniform6", torch.float32),
+                                   ("trained", torch.bfloat16))
+             for shape in layers]
     for (h, w, c, cout, count), regime, dtype, model in cases:
         x = torch.from_numpy(rng.normal(0, 1, (h, w, c)).astype(np.float32)
                              ).to(dev, dtype)
@@ -406,13 +449,9 @@ def kernel_phase():
         f32 = dtype == torch.float32
         if f32 and model == "mot":
             bitwise_checks(x, offsets, mask, weight, bias, (h, w, c, cout))
-        for name in KERNELS:
-            if dtype == torch.bfloat16 and name == "dcn_sample_tap":
-                continue
-            if model == "nuscenes" and name != "dcn_sample":
-                continue
-            if model == "kitti" and name not in ("dcn_sample",
-                                                 "dcn_sample_tap"):
+        for name in PHASE_KERNELS[(model, dtype)]:
+            if (not f32 and name == "dcn_fused"
+                    and (h, w, c, cout, count) != LAYERS[0]):
                 continue
             kernel, plain, library, tol_rel, (t_bytes, t_ffma, t_ops) = (
                 kernel_calls(name, x, offsets, mask, weight, bias))
@@ -1561,11 +1600,359 @@ def public_stage_times(det, frames, dets, sync) -> dict:
     return {k: statistics.median(v) for k, v in stages.items()}
 
 
-def per_frame_sums(rows):
-    """Per-frame sums over the 16 layers of one frame (float32, 'trained'
-    offsets)."""
+# ---- the recipes' test.py line (slice 8) ------------------------------------
+
+CLI_DIR = BUILD_DIR.parent / "cli"
+KITTI_CLI_FRAMES = 20          # tracking_val_half.json holds the last 10
+NUSCENES_CLI_SAMPLES = 3
+
+
+def write_pngs(paths_and_frames):
+    """``image_io.imwrite_png`` for each (path, frame)."""
+    for path, frame in paths_and_frames:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        imwrite_png(str(path), frame)
+
+
+def layout_mot(root: Path, n_frames: int, size) -> Path:
+    """``synthetic_scene`` as ``mot17/``: ``train/SYN-01/img1/*.png``,
+    ``gt/gt.txt`` and ``annotations/val_half.json`` with
+    ``gt/gt_val_half.txt`` in ``tools/convert_mot_to_coco.py``'s layout;
+    the sequence is its own val half (all ``n_frames`` frames)."""
+    data = root / "mot17"
+    seq = data / "train" / "SYN-01"
+    scene = list(synthetic_scene(n_frames, *size))
+    write_pngs((seq / "img1" / f"{f + 1:06d}.png", img)
+               for f, (img, _) in enumerate(scene))
+    rows = [f"{f + 1},{i + 1},{b[0]:.1f},{b[1]:.1f},{b[2] - b[0]:.1f},"
+            f"{b[3] - b[1]:.1f},1,1,1"
+            for f, (_, boxes) in enumerate(scene) for i, b in enumerate(boxes)]
+    (seq / "gt").mkdir(parents=True, exist_ok=True)
+    for name in ("gt.txt", "gt_val_half.txt"):
+        (seq / "gt" / name).write_text("\n".join(rows) + "\n")
+    images = [{"id": f + 1, "file_name": f"SYN-01/img1/{f + 1:06d}.png",
+               "video_id": 1, "frame_id": f + 1, "height": size[0],
+               "width": size[1]} for f in range(n_frames)]
+    ann = {"images": images, "annotations": [],
+           "videos": [{"id": 1, "file_name": "SYN-01"}],
+           "categories": [{"id": 1, "name": "pedestrian"}]}
+    (data / "annotations").mkdir(parents=True, exist_ok=True)
+    (data / "annotations" / "val_half.json").write_text(json.dumps(ann))
+    return data
+
+
+def layout_kitti(root: Path, n_frames: int, size) -> Path:
+    """The numpy KITTI scene as ``kitti_tracking/``: PNG frames under
+    ``data_tracking_image_2/training/image_02/0000``, ``label_02/0000.txt``
+    and ``calib/0000.txt``, then ``tools/convert_kittitrack_to_coco.py``
+    (its ``tracking_val_half.json`` holds the last half)."""
+    import contextlib
+
+    from tools.convert_kittitrack_to_coco import convert
+
+    data = root / "kitti_tracking"
+    frames, rows = make_sequence(n_frames=n_frames, height=size[0],
+                                 width=size[1], seed=SEED + 4)
+    write_pngs((data / "data_tracking_image_2" / "training" / "image_02"
+                / "0000" / f"{f:06d}.png", img) for f, img in enumerate(frames))
+    (data / "label_02").mkdir(parents=True, exist_ok=True)
+    (data / "label_02" / "0000.txt").write_text("\n".join(rows) + "\n")
+    (data / "calib").mkdir(parents=True, exist_ok=True)
+    (data / "calib" / "0000.txt").write_text(
+        f"P2: 700.0 0.0 {size[1] / 2} 0.0 0.0 700.0 {size[0] / 2} 0.0 "
+        "0.0 0.0 1.0 0.0\n")
+    with contextlib.redirect_stdout(sys.stderr):
+        convert(str(data), "train")
+    return data
+
+
+def layout_nuscenes(root: Path, samples: int, size) -> Path:
+    """The six-camera rig as ``nuscenes/``: PNG frames under
+    ``v1.0-trainval/samples/<camera>/``, ``annotations/val.json`` and the
+    rig's ground truth as the v1.0 tables ``tools/eval_nuscenes.py`` reads
+    (``synthetic_nuscenes.make_tables``)."""
+    data = root / "nuscenes"
+    version = data / "v1.0-trainval"
+    scene = make_scene(n_samples=samples, cameras=CAMERAS, height=size[0],
+                       width=size[1], seed=SEED + 3)
+    images = []
+    for info, frame in scene:
+        name = "samples/" + info["file_name"].replace(".jpg", ".png")
+        images.append(dict(info, file_name=name))
+        write_pngs([(version / name, frame)])
+    for name, rows in make_tables(samples, seed=SEED + 3).items():
+        (version / f"{name}.json").write_text(json.dumps(rows))
+    ann = {"images": images, "annotations": [],
+           "videos": [{"id": 1, "file_name": "scene-0001"}],
+           "categories": [{"id": i + 1, "name": n} for i, n in
+                          enumerate(NUSCENES_INFO.class_name)]}
+    (data / "annotations").mkdir(parents=True, exist_ok=True)
+    (data / "annotations" / "val.json").write_text(json.dumps(ann))
+    return data
+
+
+@torch.no_grad()
+def recipe_checkpoints(recipe: str, argv, data: Path, out: Path,
+                       layers) -> tuple:
+    """Seeded float32 weights for the recipe's config (the CLI's parse of
+    its line), as the other phases prepare them: offset convs randomized on
+    the dataset's first frame, the heatmap raised (every class on KITTI),
+    plausible 3-D heads on nuScenes; saved as a reference ``.pth`` under
+    ``out``, and the seeded LSTM motion model's beside it where the line
+    has ``--load_model_traj``.  Returns the flags that name the files, the
+    number of DCNv2 layers and {kernel: layers} of the bf16 hybrid
+    (``bf16_hybrid_kernel``)."""
+    cfg, _ = parse_config(argv)
+    cfg = cfg.replace(compute_dtype="float32", load_model="",
+                      load_model_traj="")
+    ann = {"mot": "val_half.json", "kitti": "tracking_val_half.json",
+           "nuscenes": "val.json"}[recipe]
+    dataset = get_dataset(cfg.dataset)(cfg, "val", data_dir=str(data))
+    info = json.loads((data / "annotations" / ann).read_text())["images"][0]
+    frame = imread(os.path.join(dataset.img_dir, info["file_name"]))
+    heatmap = raise_class_heatmaps if recipe == "kitti" else raise_heatmap
+    det, n_dcn, _ = prepared_detector(cfg, [frame], "cuda", layers, heatmap)
+    bf16_layers = Counter(bf16_hybrid_kernel(recipe, m.weight.shape[1])
+                          for m in det.model.modules()
+                          if isinstance(m, DCNv2))
+    if recipe == "nuscenes":
+        plausible_3d_heads(det.model)
+    # one bf16 detect at the input size, so that the measured runs do not
+    # pay the library's first choice of bf16 convolution kernels
+    bf16 = create_model(cfg.arch, cfg.replace(compute_dtype="bfloat16"),
+                        det.device)
+    bf16.load_state_dict(det.model.state_dict())
+    bf16.detect(det.pre_process(frame)[0], k=cfg.K)
+    del bf16
+    out.mkdir(parents=True, exist_ok=True)
+    flags = {"load_model": out / "model.pth"}
+    torch.save({"epoch": 0, "state_dict": {
+        k: v.cpu() for k, v in det.model.state_dict().items()}},
+        flags["load_model"])
+    if "--load_model_traj" in argv:
+        flags["load_model_traj"] = out / "motion.pth"
+        motion = motion_lstm.LSTMMotion(cfg.dataset, device="cpu")
+        torch.save(motion.model.state_dict(), flags["load_model_traj"])
+    return flags, n_dcn, bf16_layers
+
+
+WRAPPER_KERNELS = {"deform_sample": "dcn_sample",
+                   "deform_sample_tap": "dcn_sample_tap",
+                   "deform_sample_onehot": "dcn_sample_onehot",
+                   "deform_conv_fused": "dcn_fused"}
+
+
+@contextlib.contextmanager
+def sampled_dtypes():
+    """Counts (kernel, x dtype) of every kernel launch meanwhile: each
+    wrapper asks ``cuda_dcn._on_card`` with x first, and launches where it
+    answers True."""
+    seen = Counter()
+    on_card = cuda_dcn._on_card
+
+    def counted(name, *tensors):
+        launching = on_card(name, *tensors)
+        if launching:
+            seen[(WRAPPER_KERNELS[name],
+                  str(tensors[0].dtype).replace("torch.", ""))] += 1
+        return launching
+
+    cuda_dcn._on_card = counted
+    try:
+        yield seen
+    finally:
+        cuda_dcn._on_card = on_card
+
+
+def cli_run(argv):
+    """``deft_tpu_torch.test.main(argv)`` with its stdout (the evaluators'
+    tables) sent to stderr: (metrics, stats, launches, x dtypes, peak
+    bytes, resident bytes at the start)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    stats = {}
+    reset_launches()
+    with sampled_dtypes() as seen, contextlib.redirect_stdout(sys.stderr):
+        metrics = port_test.main(argv, stats)
+    count = launches()
+    return (metrics, stats, count, dict(seen),
+            torch.cuda.max_memory_allocated(), resident)
+
+
+def check_cli_outputs(recipe, argv, metrics, data: Path):
+    """Every image of the split has a results entry; the results files
+    exist and the evaluator scored them."""
+    cfg, extras = parse_config(argv)
+    ann = {"mot": "val_half.json", "kitti": "tracking_val_half.json",
+           "nuscenes": "val.json"}[recipe]
+    ids = {str(im["id"]) for im in json.loads(
+        (data / "annotations" / ann).read_text())["images"]}
+    saved = json.loads((Path(cfg.save_dir)
+                        / f"save_results_{cfg.dataset}.json").read_text())
+    if set(saved) != ids:
+        raise AssertionError(f"{recipe}: results for {len(saved)} of "
+                             f"{len(ids)} images")
+    if recipe == "nuscenes":
+        files = [Path(metrics["submission"])]
+        scored = metrics["overall"]["gt"] > 0
+    else:
+        sub = ("results_mot17halfval" if recipe == "mot"
+               else "results_kitti_tracking")
+        files = list((Path(cfg.save_dir) / sub).glob("*.txt"))
+        scored = metrics["overall"]["num_objects"] > 0
+    if not files or not all(f.stat().st_size > 0 for f in files):
+        raise AssertionError(f"{recipe}: results files {files}")
+    if not scored:
+        raise AssertionError(f"{recipe}: the evaluator scored no object")
+    return sum(len(v) for v in saved.values())
+
+
+def bf16_hybrid_kernel(model: str, channels: int) -> str:
+    """The kernel of a hybrid DCNv2 layer with ``channels`` input channels
+    on a bf16 x (``models/dcn.py``): as the JAX hybrid picks on a TPU,
+    ``dcn_sample`` for one sample of at most ``HYBRID_CM_CHANNELS``
+    channels, else ``dcn_sample_onehot``.  nuScenes' ``run_multi`` takes a
+    sample's six cameras as one batch, which the hybrid routes through the
+    onehot function at every layer."""
+    if model != "nuscenes" and channels <= HYBRID_CM_CHANNELS:
+        return "dcn_sample"
+    return "dcn_sample_onehot"
+
+
+def expected_launches(dtype: str, impl: str, n_dcn: int, bf16_layers: dict,
+                      frames: int) -> dict:
+    """{(kernel, x dtype): launches} of one recipe run over ``frames``
+    (camera) frames: under ``pallas`` every layer through
+    ``dcn_sample_tap``; under ``hybrid`` at float32 every layer through
+    ``dcn_sample``, at bf16 ``bf16_layers`` {kernel: layers}."""
+    if impl == "pallas":
+        per_frame = {"dcn_sample_tap": n_dcn}
+    elif dtype == "float32":
+        per_frame = {"dcn_sample": n_dcn}
+    else:
+        per_frame = bf16_layers
+    return {(k, dtype): n * frames for k, n in per_frame.items()}
+
+
+def cli_phase():
+    """Slice 8's main path: each recipe's ``test.py`` line from
+    ``experiments/*.sh`` -- ``--compute_dtype bfloat16`` included -- through
+    ``deft_tpu_torch.test.main`` on the card with ``--data_dir``,
+    ``--exp_dir`` and the weight files added, on datasets laid out in PNG
+    under ``build/cli/`` (30 1080x1920 MOT frames, 10 375x1242 KITTI frames
+    in the val half, 3 samples x 6 cameras of 900x1600).  Per recipe and
+    dtype (bf16, the line's own, then float32) one unprofiled run, timed
+    (wall ms per frame with the image reads, the reads alone, peak memory,
+    launches and the dtype of every kernel's x), then the same line under
+    ``torch.profiler`` recording the device's activity alone (device kernel
+    ms per frame, and the busy share against that run's own wall time);
+    then the MOT line at bf16 once more with ``--dcn_impl pallas`` (T2),
+    unprofiled.  Asserts, for every run, that every frame has results, the
+    results files exist and were scored, and that every DCNv2 layer of
+    every frame launched the kernel ``expected_launches`` names on an x of
+    the run's dtype.  Returns the launches of the unprofiled bf16 runs per
+    (recipe, dcn_impl)."""
+    import shutil
+
+    sizes = {"mot": ((1080, 1920), FRAMES),
+             "kitti": (KITTI_SIZE, KITTI_CLI_FRAMES),
+             "nuscenes": ((900, 1600), NUSCENES_CLI_SAMPLES)}
+    layers = {"mot": LAYERS, "kitti": KITTI_LAYERS,
+              "nuscenes": NUSCENES_LAYERS}
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    data_dir = CLI_DIR / "data"
+    data = {"mot": layout_mot(data_dir, sizes["mot"][1], sizes["mot"][0]),
+            "kitti": layout_kitti(data_dir, sizes["kitti"][1],
+                                  sizes["kitti"][0]),
+            "nuscenes": layout_nuscenes(data_dir, sizes["nuscenes"][1],
+                                        sizes["nuscenes"][0])}
+    emit({"phase": "cli_layout", "seconds": time.perf_counter() - t0,
+          "encoder": "deft_tpu_torch.data.image_io.imwrite_png, zlib 1"})
+    path_launches = {}
+    for recipe in RECIPES:
+        base = recipe_test_argv(recipe, data_dir=data_dir,
+                                exp_dir=CLI_DIR / "exp", gpus=0,
+                                save_results=True)
+        files, n_dcn, bf16_layers = recipe_checkpoints(
+            recipe, base, data[recipe], CLI_DIR / "weights" / recipe,
+            layers[recipe])
+        line = with_flags(base, **files)
+        runs = [("bfloat16", "hybrid"), ("float32", "hybrid")]
+        if recipe == "mot":
+            runs.append(("bfloat16", "pallas"))
+        for dtype, impl in runs:
+            # the line's own dtype first; --dcn_impl only where it changes
+            argv = with_flags(line, compute_dtype=dtype)
+            if impl != "hybrid":
+                argv = with_flags(argv, dcn_impl=impl)
+
+            def checked(out, what):
+                metrics, stats, count, seen, _, _ = out
+                want = expected_launches(dtype, impl, n_dcn, bf16_layers,
+                                         stats["frames"])
+                want_count = dict.fromkeys(KERNELS, 0)
+                want_count.update({k: n for (k, _), n in want.items()})
+                if count != want_count or seen != want:
+                    raise AssertionError(
+                        f"{recipe} {dtype} {impl} ({what}): launches {count} "
+                        f"on x {seen}, expected {want}")
+                return check_cli_outputs(recipe, argv, metrics, data[recipe])
+
+            t_run = time.perf_counter()
+            out = cli_run(argv)
+            t_run = time.perf_counter() - t_run
+            metrics, stats, count, seen, peak, resident = out
+            items = checked(out, "unprofiled")
+            n_frames = stats["frames"]
+            ms = stats["seconds"] * 1e3 / n_frames
+            overall = metrics["overall"]
+            row = {"phase": "cli", "recipe": recipe, "dtype": dtype,
+                   "dcn_impl": impl, "argv": argv,
+                   "frames": n_frames,
+                   "unit": "camera frame" if recipe == "nuscenes" else
+                           "frame",
+                   "ms_per_frame": ms,
+                   "read_ms_per_frame": stats["read_seconds"] * 1e3
+                                        / n_frames,
+                   "items": items, "launches": count,
+                   "main_seconds": t_run,
+                   "x_dtype_launches": {f"{k} {d}": n
+                                        for (k, d), n in seen.items()},
+                   "peak_memory_bytes": peak,
+                   "resident_at_start_bytes": resident,
+                   "metrics_overall": {k: v for k, v in overall.items()
+                                       if isinstance(v, (int, float))}}
+            if recipe == "nuscenes":
+                row["ms_per_sample"] = ms * CAMERAS
+            if impl == "hybrid":
+                holder = {}
+                device_ms, top = device_profile(
+                    lambda: holder.update(out=cli_run(argv)), 1,
+                    host_ops=False)
+                checked(holder["out"], "profiled")
+                prof_stats = holder["out"][1]
+                prof_ms = prof_stats["seconds"] * 1e3 / n_frames
+                row.update({
+                    "profiled_ms_per_frame": prof_ms,
+                    "device_ms_per_frame": device_ms / n_frames,
+                    "busy_share": device_ms / n_frames / prof_ms,
+                    "top_kernels_ms_per_frame": [
+                        [round(t / n_frames, 4), c / n_frames, name]
+                        for t, c, name in top[:8]]})
+            emit(row)
+            if dtype == "bfloat16":
+                path_launches[(recipe, impl)] = count
+    return path_launches
+
+
+def per_frame_sums(rows, dtype="float32"):
+    """Per-frame sums over the layers of ``rows`` ('trained' offsets, x in
+    ``dtype``)."""
     per_frame = [r for r in rows if r["regime"] == "trained"
-                 and r["dtype"] == "float32"]
+                 and r["dtype"] == dtype]
     return {key: sum(r[key] * r["count"] for r in per_frame)
             for key in ("kernel_ms", "plain_ms", "library_ms",
                         "bound_bytes_ms", "bound_operations_ms",
@@ -1584,26 +1971,44 @@ def sums_entry(sums):
 
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
-                 public_launches):
-    """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame,
-    the worst error of any case, and the launches of the paths that run it
-    (the kernel phase's for the two no path reaches); ``dcn_sample`` adds
-    its sums over a 448x800 nuScenes camera, and it and ``dcn_sample_tap``
-    their sums over a 384x1280 KITTI frame."""
+                 public_launches, cli_launches):
+    """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
+    (float32 x), the worst error of any case, and the launches of the paths
+    that run it (the kernel phase's for ``dcn_fused``, which no path
+    reaches); ``dcn_sample`` adds its sums over a 448x800 nuScenes camera,
+    it and ``dcn_sample_tap`` their sums over a 384x1280 KITTI frame and
+    over a 544x960 MOT frame on a bf16 x, and ``dcn_sample`` and
+    ``dcn_sample_onehot`` their sums on a bf16 x over the layers the bf16
+    hybrid gives each, per model (the recipes' test lines)."""
+    cli_hybrid = Counter()
+    for (_, impl), count in cli_launches.items():
+        if impl == "hybrid":
+            cli_hybrid.update(count)
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         total = per_frame_sums([r for r in mine if r["model"] == "mot"])
         path = {"dcn_sample": (
                     "Detector.run (MOT, MOT public detections, KITTI) and "
-                    "Detector.run_multi (nuScenes), dcn_impl=hybrid",
+                    "Detector.run_multi (nuScenes), dcn_impl=hybrid; "
+                    "deft_tpu_torch.test on the MOT and KITTI test lines "
+                    f"(bf16, layers of <= {HYBRID_CM_CHANNELS} channels)",
                     slice_launches + nuscenes_launches + kitti_launches
-                    + public_launches["Detector.run"]),
+                    + public_launches["Detector.run"]
+                    + cli_hybrid["dcn_sample"]),
                 "dcn_sample_tap": (
                     "PipelinedRunner chunk 1 (MOT, MOT public detections, "
-                    "KITTI), dcn_impl=pallas",
+                    "KITTI), dcn_impl=pallas; deft_tpu_torch.test on the "
+                    "MOT test line with --dcn_impl pallas (bf16)",
                     runner_launches + kitti_runner_launches["test.py"]
-                    + public_launches["PipelinedRunner"])}
+                    + public_launches["PipelinedRunner"]
+                    + cli_launches[("mot", "pallas")]["dcn_sample_tap"]),
+                "dcn_sample_onehot": (
+                    "deft_tpu_torch.test on the recipes' test lines (bf16, "
+                    f"dcn_impl=hybrid): MOT and KITTI layers of > "
+                    f"{HYBRID_CM_CHANNELS} channels, every nuScenes layer "
+                    "(six cameras as one batch)",
+                    cli_hybrid["dcn_sample_onehot"])}
         path_name, count = path.get(name, (
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
@@ -1622,14 +2027,28 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
         if name in ("dcn_sample", "dcn_sample_tap"):
             entry["kitti_per_frame"] = sums_entry(per_frame_sums(
                 [r for r in mine if r["model"] == "kitti"]))
-        if name == "dcn_sample":
+            entry["bf16_per_frame"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "mot"], "bfloat16"))
+        if name in ("dcn_sample", "dcn_sample_onehot"):
+            hybrid_rows = {
+                model: [r for r in mine if r["model"] == model
+                        and bf16_hybrid_kernel(model, r["C"]) == name]
+                for model in ("mot", "kitti", "nuscenes")}
+            entry["bf16_hybrid_layers_per_frame"] = {
+                model: sums_entry(per_frame_sums(mine_here, "bfloat16"))
+                for model, mine_here in hybrid_rows.items() if mine_here}
             entry["launches_by_path"] = {
+                f"deft_tpu_torch.test, {recipe} test line, bf16":
+                    n[name] for (recipe, impl), n in cli_launches.items()
+                if impl == "hybrid"}
+        if name == "dcn_sample":
+            entry["launches_by_path"].update({
                 f"Detector.run, MOT, {FRAMES} frames": slice_launches,
                 f"Detector.run_multi, nuScenes, {NUSCENES_SAMPLES} samples "
                 f"x {CAMERAS} cameras": nuscenes_launches,
                 f"Detector.run, KITTI, {FRAMES} frames": kitti_launches,
                 f"Detector.run, MOT public detections, {FRAMES} frames":
-                    public_launches["Detector.run"]}
+                    public_launches["Detector.run"]})
             entry["nuscenes_per_camera"] = sums_entry(per_frame_sums(
                 [r for r in mine if r["model"] == "nuscenes"]))
         if name == "dcn_sample_tap":
@@ -1643,6 +2062,9 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
             entry["launches_by_path"][
                 f"PipelinedRunner chunk 1, MOT public detections, {FRAMES} "
                 f"frames"] = public_launches["PipelinedRunner"]
+            entry["launches_by_path"][
+                "deft_tpu_torch.test, mot test line --dcn_impl pallas, "
+                "bf16"] = cli_launches[("mot", "pallas")]["dcn_sample_tap"]
         if name == "dcn_fused":
             entry["product"] = "3xTF32 mma.sync.m16n8k8, split-K"
             entry["bound_ffma_ms"] = max(total["bound_bytes_ms"],
@@ -1678,28 +2100,42 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": secs})
 
+    seconds = {"build": time.perf_counter() - t0}
+
+    def lap(phase):
+        seconds[phase] = time.perf_counter() - t0 - sum(seconds.values())
+
     reset_launches()
     rows = kernel_phase()
     kernel_launches = launches()
+    lap("kernel")
     frames = list(synthetic_frames(FRAMES))
     slice_launches, det, ms_per_frame = slice_phase(mot_config(), frames)
     checkpoint_phase(det, frames[0])
     profile_phase(det, frames, ms_per_frame)
     del det
+    lap("slice, checkpoint, profile")
     runner_rows, runners, _ = runner_phase(frames)
     runner = runners["test.py"]
     runner_profile_phase(runner, frames,
                          runner_rows["test.py"]["ms_per_frame"])
     del runner, runners, frames
+    lap("runner")
     nuscenes_launches = nuscenes_phase()
+    lap("nuscenes")
     kitti_launches, kitti_runner_launches = kitti_phase()
+    lap("kitti")
     public_launches = public_phase()
+    lap("public")
+    cli_launches = cli_phase()
+    lap("cli")
+    emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
     emit(kernels_line(rows, kernel_launches, slice_launches,
                       runner_rows["test.py"]["launches"]["dcn_sample_tap"],
                       nuscenes_launches, kitti_launches,
-                      kitti_runner_launches, public_launches))
+                      kitti_runner_launches, public_launches, cli_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

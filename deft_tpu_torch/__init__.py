@@ -10,7 +10,9 @@ Numerics policy (the counterpart of ``deft_tpu/__init__.py``, which forces
 true-float32 matmuls): float32 matrix products and cuDNN convolutions run in
 full float32, never TF32.  TF32 keeps about three decimal digits, which moves
 the trunk by ~1e-3 and is enough to reorder close detections against the
-reference.
+reference.  Products of bfloat16 operands (``compute_dtype="bfloat16"``)
+accumulate in float32 to the end, as XLA's do: cuBLAS may not reduce split
+sums in bfloat16.
 """
 
 import torch
@@ -19,3 +21,4 @@ __version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1,10 +1,14 @@
-"""Dataset metadata, copied from ``deft_tpu/data/datasets/__init__.py``.
+"""Dataset metadata and the dataset classes' factory, the counterpart of
+``deft_tpu/data/datasets/__init__.py``.
 
 What the configuration and the trackers need: ``DatasetInfo``, the
 per-dataset info table, ``get_dataset_info``, the nuScenes tracking classes
 and the nuScenes submission's class families
-(``deft_tpu/data/datasets/nuscenes.py:22-27``).  The dataset classes and the
-data pipeline are not part of the port yet.
+(``deft_tpu/data/datasets/nuscenes.py:22-27``).  ``get_dataset`` returns the
+class that ``test.py`` reads a split with: ``mot.MOTDataset``,
+``kitti_tracking.KITTITrackingDataset`` or ``nuscenes.NuScenesDataset``
+(each imported when asked for).  COCO, custom datasets and the motion
+model's trajectory dataset are not ported yet (ROADMAP.md, queue A.6).
 """
 
 from __future__ import annotations
@@ -107,3 +111,27 @@ NUSCENES_ID_TO_ATTRIBUTE = {v: k for k, v in
 
 def get_dataset_info(name: str) -> DatasetInfo:
     return _INFOS[name]
+
+
+def get_dataset(name: str, prediction_model: bool = False):
+    """Dataset class factory (``deft_tpu/data/datasets/__init__.py:
+    124-138``; the reference's ``dataset_factory.py:16-34``)."""
+    if prediction_model:
+        raise NotImplementedError(
+            "the trajectory dataset is not ported yet (ROADMAP.md, queue "
+            "A.6: data pipeline)")
+    if name == "mot":
+        from deft_tpu_torch.data.datasets.mot import MOTDataset
+        return MOTDataset
+    if name == "kitti_tracking":
+        from deft_tpu_torch.data.datasets.kitti_tracking import (
+            KITTITrackingDataset)
+        return KITTITrackingDataset
+    if name == "nuscenes":
+        from deft_tpu_torch.data.datasets.nuscenes import NuScenesDataset
+        return NuScenesDataset
+    if name in _INFOS:
+        raise NotImplementedError(
+            f"the {name!r} dataset is not ported yet (ROADMAP.md, queue "
+            "A.6: data pipeline)")
+    raise KeyError(name)

@@ -7,6 +7,8 @@ Each sequence's ``det/det.txt`` (MOT rows ``frame, id, x, y, w, h, score,
 ``track_videos_detector`` hand the runner or ``Detector.run`` as
 ``meta["cur_dets"]`` under ``cfg.public_det``:
 ``{"bbox": [x1, y1, x2, y2], "score", "class": 1, "ct": [cx, cy]}``.
+``load_results`` reads such a mapping back from the json the tool writes
+(``--load_results``, ``test.py:79-82``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,13 @@ import os
 from typing import Dict, List, Mapping, Union
 
 import numpy as np
+
+
+def load_results(path: str) -> Dict[int, List[dict]]:
+    """{image id: detection dicts} from a ``--load_results`` json (keys
+    are image ids as strings)."""
+    with open(path) as f:
+        return {int(k): v for k, v in json.load(f).items()}
 
 
 def load_det_txt(path: str) -> np.ndarray:

@@ -30,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deft_tpu_torch.models.layers import batch_norm
+from deft_tpu_torch.models.layers import Conv2d, batch_norm
 from deft_tpu_torch.ops.sampling import grid_sample_points
 
 SELECTOR_INPUT_CHANNELS = (16, 32, 64, 128, 256, 512, 64, 128, 256, 512,
@@ -60,7 +60,7 @@ class AFE(nn.Module):
         self.align_corners = align_corners
         self.embed_dim = int(sum(outs))
         self.selector = nn.ModuleList(
-            nn.Conv2d(cin, cout, 3, padding=1, bias=True)
+            Conv2d(cin, cout, 3, padding=1, bias=True)
             for cin, cout in zip(SELECTOR_INPUT_CHANNELS, outs))
         self.stacker2_bn = batch_norm(self.embed_dim)
         # reference ModuleList [conv, bn, relu] * 3 + [conv, relu] * 2

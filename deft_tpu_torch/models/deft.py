@@ -43,6 +43,7 @@ import torch.nn as nn
 
 from deft_tpu_torch.models.afe import AFE
 from deft_tpu_torch.models.dla import DLASeg, NodeSpec
+from deft_tpu_torch.models.layers import Conv2d
 from deft_tpu_torch.ops.decode import clamped_sigmoid, generic_decode
 from deft_tpu_torch.ops.warp import hat_matrix, warp_affine_with
 
@@ -97,14 +98,14 @@ class HeadTower(nn.Sequential):
                  head_kernel: int = 3, prior_bias=None):
         layers = []
         if len(convs) > 0:
-            layers += [nn.Conv2d(cin, convs[0], head_kernel,
-                                 padding=head_kernel // 2, bias=True),
+            layers += [Conv2d(cin, convs[0], head_kernel,
+                              padding=head_kernel // 2, bias=True),
                        nn.ReLU(inplace=True)]
             for c_prev, c in zip(convs[:-1], convs[1:]):
-                layers += [nn.Conv2d(c_prev, c, 1, bias=True),
+                layers += [Conv2d(c_prev, c, 1, bias=True),
                            nn.ReLU(inplace=True)]
             cin = convs[-1]
-        out = nn.Conv2d(cin, out_channels, 1, bias=True)
+        out = Conv2d(cin, out_channels, 1, bias=True)
         with torch.no_grad():
             out.bias.fill_(0.0 if prior_bias is None else prior_bias)
         layers.append(out)
@@ -118,8 +119,10 @@ class DEFTNet(DLASeg):
                  spec: NodeSpec, max_object: int = 100,
                  prior_bias: float = -4.6, head_kernel: int = 3,
                  align_corners: bool = True, dataset: str = "mot",
-                 depth_scale: float = 1.0):
+                 depth_scale: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(spec)
+        self.compute_dtype = compute_dtype
         self.heads = dict(heads)
         last_channel = self.base.channels[self.first_level]
         for h, c in self.heads.items():
@@ -143,11 +146,15 @@ class DEFTNet(DLASeg):
 
     def trunk(self, image: torch.Tensor):
         """image [B, H, W, 3] -> (the heads' NCHW input, 13 NCHW maps): the
-        ``DLASeg`` forward without the head towers."""
-        return super().forward(image.permute(0, 3, 1, 2).contiguous())
+        ``DLASeg`` forward without the head towers, in ``compute_dtype``
+        from the input on (``deft_tpu/models/dla.py:399-400``)."""
+        x = image.permute(0, 3, 1, 2).to(self.compute_dtype)
+        return super().forward(x.contiguous())
 
     def forward(self, image: torch.Tensor):
-        """image [B, H, W, 3] -> ({head: [B, H/4, W/4, C]}, 13 NCHW maps)."""
+        """image [B, H, W, 3] -> ({head: [B, H/4, W/4, C]} float32, 13 NCHW
+        maps in ``compute_dtype``); each head's output is cast to float32
+        before the sigmoid and the decode (``deft_tpu/models/deft.py:92``)."""
         y, feature_maps = self.trunk(image)
         outputs = {h: getattr(self, h)(y).float().permute(0, 2, 3, 1)
                    for h in self.heads}

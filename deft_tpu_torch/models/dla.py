@@ -21,7 +21,8 @@ import torch
 import torch.nn as nn
 
 from deft_tpu_torch.models.dcn import DCNv2, resolve_radius
-from deft_tpu_torch.models.layers import ConvBNReLU, batch_norm, bilinear_upsampler
+from deft_tpu_torch.models.layers import (Conv2d, ConvBNReLU, batch_norm,
+                                          bilinear_upsampler)
 
 DLA34_LEVELS = (1, 1, 1, 2, 2, 1)
 DLA34_CHANNELS = (16, 32, 64, 128, 256, 512)
@@ -32,10 +33,10 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn1 = batch_norm(cout)
-        self.conv2 = nn.Conv2d(cout, cout, 3, stride=1, padding=1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, stride=1, padding=1, bias=False)
         self.bn2 = batch_norm(cout)
         self.relu = nn.ReLU(inplace=True)
 
@@ -52,7 +53,7 @@ class Root(nn.Module):
 
     def __init__(self, cin: int, cout: int, residual: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 1, bias=False)
+        self.conv = Conv2d(cin, cout, 1, bias=False)
         self.bn = batch_norm(cout)
         self.residual = residual
 
@@ -87,7 +88,7 @@ class Tree(nn.Module):
         self.levels = levels
         self.level_root = level_root
         self.downsample = nn.MaxPool2d(stride, stride) if stride > 1 else None
-        self.project = (nn.Sequential(nn.Conv2d(cin, cout, 1, bias=False),
+        self.project = (nn.Sequential(Conv2d(cin, cout, 1, bias=False),
                                       batch_norm(cout))
                         if cin != cout else None)
 

@@ -1,7 +1,9 @@
 """Model factory, the counterpart of ``deft_tpu/models/factory.py``.
 
 ``create_model("dla_34", cfg, device)`` builds the network, gives it a seeded
-initialization (``init_model``) and moves it to ``device`` in eval mode.
+initialization (``init_model``) and moves it to ``device`` in eval mode.  It
+computes in ``cfg.compute_dtype`` (float32 or bfloat16, ``models/layers.py``)
+with float32 parameters.
 """
 
 from __future__ import annotations
@@ -17,6 +19,12 @@ from deft_tpu_torch.config import Config
 from deft_tpu_torch.models.dcn import DCNv2
 from deft_tpu_torch.models.deft import DEFTNet
 from deft_tpu_torch.models.dla import NodeSpec
+
+
+# cfg.compute_dtype -> the dtype the trunk, heads and selectors compute in
+# (parameters stay float32); "" is the JAX package's float32 too
+COMPUTE_DTYPES = {"float32": torch.float32, "": torch.float32,
+                  "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device) -> torch.device:
@@ -45,9 +53,9 @@ def create_model(arch: str, cfg: Config, device="cuda") -> DEFTNet:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet; the port runs dla_34 "
             "(ROADMAP.md, queue A: other archs)")
-    if cfg.compute_dtype not in ("float32", ""):
-        raise NotImplementedError(
-            "bf16 compute is not ported yet (ROADMAP.md, queue A)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
     dev = resolve_device(device)
     spec = NodeSpec(cfg.dla_node, cfg.dcn_offset_range,
                     parse_layer_radii(cfg.dcn_layer_radii), cfg.dcn_impl)
@@ -61,7 +69,8 @@ def create_model(arch: str, cfg: Config, device="cuda") -> DEFTNet:
             spec=spec, max_object=cfg.max_object,
             prior_bias=cfg.prior_bias, head_kernel=cfg.head_kernel,
             align_corners=cfg.align_corners, dataset=cfg.dataset,
-            depth_scale=cfg.depth_scale)
+            depth_scale=cfg.depth_scale,
+            compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
     init_model(model, cfg.seed, cfg.prior_bias)
     return model.to(dev).eval()
 

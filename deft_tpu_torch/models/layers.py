@@ -3,6 +3,23 @@
 Module and parameter names follow the reference DEFT network, so that a
 published DEFT ``state_dict`` loads directly: a conv-BN-ReLU triple is an
 ``nn.Sequential`` whose children ``0`` and ``1`` are the conv and the BN.
+
+Compute dtype.  ``Conv2d``, ``ConvTranspose2d`` and ``BatchNorm2d`` compute
+in the dtype of their input, the way the JAX package's flax modules compute
+in their ``dtype`` (``cfg.compute_dtype``); ``DEFTNet`` casts the normalized
+input once, at the trunk's entry.  Parameters stay float32, so a
+``state_dict`` keeps its keys and dtypes.  Under a bfloat16 input:
+
+* a convolution takes bfloat16 operands, accumulates in float32 and rounds
+  its output to bfloat16, then adds its bias rounded to bfloat16 and rounds
+  again, as ``flax.linen.Conv(dtype=bfloat16)`` does (its ``promote_dtype``
+  casts input, kernel and bias; ``out += bias``);
+* a BatchNorm normalizes the bfloat16 input with the float32 statistics,
+  scale and bias and rounds once to bfloat16, as flax's ``_normalize``
+  does (``x - mean`` promotes to float32, the result is cast to ``dtype``).
+  It is never folded into the convolution, which would round elsewhere.
+
+A float32 input runs the ``torch.nn`` module's own forward.
 """
 
 from __future__ import annotations
@@ -11,6 +28,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 # torch BatchNorm2d(momentum=0.1) == flax BatchNorm(momentum=0.9); only the
 # eval-mode running statistics matter for inference
@@ -23,8 +41,43 @@ def torch_pad(kernel: int, dilation: int = 1) -> int:
     return dilation * (kernel // 2)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)[:, None, None]
+        return y
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no bias, no ``output_size``) computing in its
+    input's dtype: the JAX upsampler casts its kernel to the input's dtype
+    (``deft_tpu/models/layers.py:118-128``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` in float32 whatever its input, its result in the
+    input's dtype (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(x.dtype)
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBNReLU(nn.Sequential):
@@ -34,9 +87,9 @@ class ConvBNReLU(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  dilation: int = 1, relu: bool = True):
         layers = [
-            nn.Conv2d(cin, cout, kernel, stride=stride,
-                      padding=torch_pad(kernel, dilation), dilation=dilation,
-                      bias=False),
+            Conv2d(cin, cout, kernel, stride=stride,
+                   padding=torch_pad(kernel, dilation), dilation=dilation,
+                   bias=False),
             batch_norm(cout),
         ]
         if relu:
@@ -53,13 +106,13 @@ def bilinear_upsample_kernel(k: int) -> torch.Tensor:
     return row[:, None] * row[None, :]
 
 
-def bilinear_upsampler(channels: int, factor: int) -> nn.ConvTranspose2d:
+def bilinear_upsampler(channels: int, factor: int) -> ConvTranspose2d:
     """Depthwise transposed conv, bilinear-initialized: the reference's own
     ``nn.ConvTranspose2d(o, o, f*2, stride=f, padding=f//2, groups=o,
     bias=False)`` (``dla.py:677-687``).  ``deft_tpu/models/layers.py:92-129``
     is its JAX lowering (input-dilated conv with the kernel flipped)."""
     k = 2 * factor
-    up = nn.ConvTranspose2d(channels, channels, k, stride=factor,
+    up = ConvTranspose2d(channels, channels, k, stride=factor,
                             padding=factor // 2, groups=channels, bias=False)
     with torch.no_grad():
         up.weight.copy_(bilinear_upsample_kernel(k).expand(channels, 1, k, k))

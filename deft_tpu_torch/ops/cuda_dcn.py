@@ -41,6 +41,10 @@ Which ``dcn_impl`` computes which function (``models/dcn.py`` dispatches):
 * ``deform_conv_fused`` (T3) and ``deform_conv_onehot_sampled`` (T4) have no
   ``dcn_impl``: nothing in the JAX package calls their TPU kernels.
 
+That list is for a float32 x.  Under a bfloat16 x (``compute_dtype=
+"bfloat16"``) ``models/dcn.py``'s docstring says which function each
+``dcn_impl`` takes; the default hybrid then samples through T1 or T4.
+
 On a CUDA tensor every wrapper launches its kernel (built on first use, see
 ``csrc/build.py``) or raises; on a CPU tensor it computes the ``*_reference``
 plain version of the same function.  Nothing falls back from the card to a
@@ -596,6 +600,23 @@ def deform_conv_onehot_sampled(x: torch.Tensor, offsets: torch.Tensor,
     h, w, _ = x.shape
     return _product(deform_sample_onehot(x, offsets, mask, radius), weight,
                     bias, h, w, x.dtype)
+
+
+def deform_conv_rounded(sample, x: torch.Tensor, offsets: torch.Tensor,
+                        mask: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, radius: int) -> torch.Tensor:
+    """A bfloat16 x's modulated deformable conv as ``deform_conv_onehot``,
+    ``deform_conv_shift_xla`` and ``deform_conv_pallas_tap`` compute it
+    under a bfloat16 trunk (``patches.astype(weight.dtype) @ weight + bias``
+    with a bfloat16 weight, pallas_dcn.py:147, :218, :452): ``sample``'s
+    bfloat16 patches times the weight rounded to bfloat16, accumulated in
+    float32 and rounded to bfloat16, then the float32 bias, rounded again
+    -> ``[H, W, Cout]`` bfloat16.  ``sample`` is ``deform_sample``,
+    ``deform_sample_tap`` or ``deform_sample_onehot``."""
+    h, w, _ = x.shape
+    patches = sample(x, offsets, mask, radius)
+    out = torch.mm(patches, weight.to(torch.bfloat16)).float() + bias
+    return out.reshape(h, w, -1).to(torch.bfloat16)
 
 
 def deform_conv_cm(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,

@@ -66,7 +66,7 @@ _FORBIDDEN = re.compile(
 
 def test_sources_import_no_jax():
     files = sorted((ROOT / "deft_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "recipe_lines.py"]
     assert len(files) > 10
     for path in files:
         text = path.read_text()
