@@ -45,6 +45,13 @@ max_object=100, 50-slot rings) with seeded random weights:
   channels, ``dcn_sample_onehot`` on the others and on nuScenes' batch of
   cameras, as the JAX hybrid picks on a TPU)
   and float32, and the MOT line at bf16 with ``--dcn_impl pallas``;
+* slice 9, the MOT recipe's ``train.py`` line through ``python -m
+  deft_tpu_torch.train``'s ``main`` (``train_phase``: batch 4 at 544x960,
+  an epoch of the slice 8 PNG frames, bf16 and float32, then the recipe's
+  test line on the ``model_last.pth`` written), every DCNv2 layer of every
+  sample forward through ``dcn_sample_onehot`` (bf16) or ``dcn_sample``
+  (float32) and backward through ``dcn_backward`` (T5, also held against
+  its plain version at the 7 MOT shapes in the kernel phase);
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -101,6 +108,7 @@ from deft_tpu_torch.inference.runner import PipelinedRunner
 from deft_tpu_torch.models.dcn import HYBRID_CM_CHANNELS, DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
+from deft_tpu_torch.train import run as port_train
 from deft_tpu_torch.track import (
     nuscenes_submission,
     save_kitti_results,
@@ -115,7 +123,8 @@ from deft_tpu_torch.tracking.basetrack import IdAllocator
 # the recipes' command lines, shared with the port's tests (a site package
 # named ``tests`` would shadow the repository's directory as a package)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from recipe_lines import RECIPES, recipe_test_argv, with_flags  # noqa: E402
+from recipe_lines import (RECIPES, recipe_lines, recipe_test_argv,  # noqa: E402
+                          with_flags)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -169,6 +178,11 @@ KERNELS = {
     "dcn_sample_onehot": ("deft_tpu_torch/csrc/dcn_onehot.cu",
                           "deft_tpu/ops/pallas_dcn.py:463",
                           "LAUNCHES_ONEHOT"),                             # T4
+    # T5 replaces no Pallas kernel: the jax.vjp of deform_conv_onehot that
+    # the JAX trainer takes (pallas_dcn.py:167, :733-747, :773-787)
+    "dcn_backward": ("deft_tpu_torch/csrc/dcn_backward.cu",
+                     "deft_tpu/ops/pallas_dcn.py:167",
+                     "LAUNCHES_BACKWARD"),                                # T5
 }
 CHUNK = 4                      # bench.py's runner
 PUBLIC_IOU_SHARE = 0.95         # public track boxes at IoU >= 0.5 with a
@@ -319,12 +333,11 @@ def bound_times(h, w, c, in_bytes, out_bytes, cout=0):
     return nbytes / HBM_BYTES_PER_S * 1e3, ffma_ms, route_ms
 
 
-def grid_sample_yardstick(x, offsets, mask, radius):
-    """The same sampling through one library call: ``grid_sample`` of the
-    9-tap grid (zeros padding, corner-aligned), times the mask.  Returns the
-    timed closure, whose result is [1, C, 9, H*W]; the grid is built once
-    outside it.  A bf16 x is sampled in bf16, grid and mask included
-    (``grid_sample`` takes one dtype); a yardstick of time only."""
+def yardstick_inputs(x, offsets, mask, radius):
+    """``grid_sample``'s operands for the 9-tap sampling: x as NCHW, the
+    [1, 9, H*W, 2] grid (corner-aligned) and the mask as [1, 1, 9, H*W]; a
+    bf16 x keeps bf16 (``grid_sample`` takes one dtype), grid and mask
+    included."""
     h, w, c = x.shape
     dev = x.device
     off = offsets.clamp(-radius, radius)
@@ -341,6 +354,16 @@ def grid_sample_yardstick(x, offsets, mask, radius):
         x_nchw = x_nchw.float()
     grid = grid.to(x_nchw.dtype)
     m = mask.permute(2, 0, 1).reshape(1, 1, 9, h * w).to(x_nchw.dtype)
+    return x_nchw, grid, m
+
+
+def grid_sample_yardstick(x, offsets, mask, radius):
+    """The same sampling through one library call: ``grid_sample`` of the
+    9-tap grid (zeros padding, corner-aligned), times the mask.  Returns the
+    timed closure, whose result is [1, C, 9, H*W]; the grid is built once
+    outside it.  A bf16 x is sampled in bf16, grid and mask included
+    (``grid_sample`` takes one dtype); a yardstick of time only."""
+    x_nchw, grid, m = yardstick_inputs(x, offsets, mask, radius)
 
     def run():
         s = torch.nn.functional.grid_sample(
@@ -349,6 +372,96 @@ def grid_sample_yardstick(x, offsets, mask, radius):
         return s * m
 
     return run
+
+
+def grid_sample_backward_yardstick(x, offsets, mask, g, radius):
+    """T5's work through the library: what autograd runs for the backward
+    of ``grid_sample_yardstick``, i.e. ``grid_sampler_2d_backward`` of the
+    gradient times the mask (dx and the grid's gradient) plus the mask's
+    gradient, the sum over channels of the gradient times the sampled
+    values (kept from the forward, as autograd keeps them).  Returns the
+    timed closure; a yardstick of time only."""
+    h, w, c = x.shape
+    x_nchw, grid, m = yardstick_inputs(x, offsets, mask, radius)
+    go = g.reshape(h * w, 9, c).permute(2, 1, 0)[None].contiguous().to(
+        x_nchw.dtype)                                        # [1, C, 9, HW]
+    sampled = torch.nn.functional.grid_sample(
+        x_nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True)
+
+    def run():
+        dx, dgrid = torch.ops.aten.grid_sampler_2d_backward(
+            go * m, x_nchw, grid, 0, 0, True, [True, True])
+        return dx, dgrid, (go * sampled).sum(1)
+
+    return run
+
+
+def backward_bound(h, w, c, x_bytes, g_bytes):
+    """Least time of one T5 call, as (bytes_ms, operations_ms): g, x,
+    offsets and mask read once, dx in float32, doffsets and dmask written
+    once, over the memory rate; 32 float32 operations per sampled element
+    (the blend, the two corner differences, the three channel sums and the
+    four weighted corner updates) plus ~40 per (pixel, tap), at the float32
+    rate outside the tensor cores."""
+    nbytes = (h * w * 9 * c * g_bytes + h * w * c * x_bytes
+              + 2 * (h * w * 9 * 2 * 4 + h * w * 9 * 4) + h * w * c * 4)
+    ops = h * w * 9 * (32 * c + 40)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+
+
+def backward_row(x, offsets, mask, rng, shape, regime):
+    """T5 against its plain version on one layer's inputs and a N(0, 1)
+    patch gradient in x's dtype (bf16 x: T4's bf16 patches), with its
+    times, bound and library yardstick.  Tolerances: doffsets and dmask,
+    float32 sums over C in another order, 1e-5 x max|plain|; dx, summed
+    with float32 atomics in an order that changes from call to call,
+    1e-5 x max|plain| in float32 and one bf16 step (2^-7 x max|plain|)
+    when cast to a bf16 x.  Whether two calls give the same bits is
+    recorded."""
+    h, w, c, cout, count = shape
+    g = torch.from_numpy(rng.normal(0, 1, (h * w, 9 * c)).astype(np.float32)
+                         ).to(x.device, x.dtype)
+    args = (g, x, offsets, mask, RADIUS)
+
+    def kernel():
+        return cuda_dcn.deform_sample_backward(*args)
+
+    def plain():
+        return cuda_dcn.deform_sample_backward_reference(*args)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    again = kernel()
+    ref = plain()
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        e = (a.float() - b.float()).abs().max().item()
+        rel = 2.0 ** -7 if (i == 0 and x.dtype == torch.bfloat16) else 1e-5
+        tol = rel * b.float().abs().max().item()
+        if not e <= tol:
+            raise AssertionError(
+                f"dcn_backward output {i} disagrees with its plain version "
+                f"at {(h, w, c)} {regime} {x.dtype}: {e} > {tol}")
+        err = max(err, e)
+    t_bytes, t_ops = backward_bound(h, w, c, x.element_size(),
+                                    g.element_size())
+    return {"phase": "kernel", "kernel": "dcn_backward", "model": "mot",
+            "H": h, "W": w, "C": c, "Cout": cout, "count": count,
+            "regime": regime, "dtype": str(x.dtype).replace("torch.", ""),
+            "radius": RADIUS,
+            "kernel_ms": graph_times(kernel), "kernel_call_ms":
+                cuda_times(kernel),
+            "plain_ms": graph_times(plain, per_graph=5),
+            "library_ms": graph_times(grid_sample_backward_yardstick(
+                x, offsets, mask, g, RADIUS)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+            "bound_operations_ffma_ms": t_ops,
+            "max_abs_err": err,
+            "same_bits_two_calls": all(torch.equal(a, b)
+                                       for a, b in zip(got, again))}
 
 
 def kernel_calls(name, x, offsets, mask, weight, bias):
@@ -403,11 +516,12 @@ def bitwise_checks(x, offsets, mask, weight, bias, shape):
 
 
 # kernels held and timed per (model, x dtype) at every layer shape of the
-# model; dcn_fused on a bf16 x only at the largest MOT shape
+# model; dcn_fused on a bf16 x only at the largest MOT shape; dcn_backward
+# alone on a bf16 x with offsets past the clamp
 PHASE_KERNELS = {
     ("mot", torch.float32): tuple(KERNELS),
     ("mot", torch.bfloat16): ("dcn_sample", "dcn_sample_tap", "dcn_fused",
-                              "dcn_sample_onehot"),
+                              "dcn_sample_onehot", "dcn_backward"),
     ("kitti", torch.float32): ("dcn_sample", "dcn_sample_tap"),
     ("kitti", torch.bfloat16): ("dcn_sample", "dcn_sample_tap",
                                 "dcn_sample_onehot"),
@@ -421,9 +535,10 @@ def kernel_phase():
     layer shapes of a 544x960 MOT frame, a 448x800 nuScenes camera and a
     384x1280 KITTI frame: on a float32 x with 'trained' offsets and with
     offsets past the clamp, and on a bf16 x (the recipes' trunk) with
-    'trained' offsets; the bitwise checks at every float32 MOT case; times
-    and bounds per call, T2 with the GEMM that reads its patches, and each
-    kernel's plan."""
+    'trained' offsets (T5, ``dcn_backward``, on the MOT shapes, also on a
+    bf16 x past the clamp; ``backward_row``); the bitwise checks at every
+    float32 MOT case; times and bounds per call, T2 with the GEMM that
+    reads its patches, and each kernel's plan."""
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
     rows = []
@@ -433,8 +548,11 @@ def kernel_phase():
                                    ("kitti", KITTI_LAYERS))
              for regime, dtype in (("trained", torch.float32),
                                    ("uniform6", torch.float32),
-                                   ("trained", torch.bfloat16))
-             for shape in layers]
+                                   ("trained", torch.bfloat16),
+                                   ("uniform6", torch.bfloat16))
+             for shape in layers
+             if model == "mot" or (regime, dtype) != ("uniform6",
+                                                      torch.bfloat16)]
     for (h, w, c, cout, count), regime, dtype, model in cases:
         x = torch.from_numpy(rng.normal(0, 1, (h, w, c)).astype(np.float32)
                              ).to(dev, dtype)
@@ -452,6 +570,14 @@ def kernel_phase():
         for name in PHASE_KERNELS[(model, dtype)]:
             if (not f32 and name == "dcn_fused"
                     and (h, w, c, cout, count) != LAYERS[0]):
+                continue
+            if not f32 and regime == "uniform6" and name != "dcn_backward":
+                continue
+            if name == "dcn_backward":
+                row = backward_row(x, offsets, mask, rng,
+                                   (h, w, c, cout, count), regime)
+                emit(row)
+                rows.append(row)
                 continue
             kernel, plain, library, tol_rel, (t_bytes, t_ffma, t_ops) = (
                 kernel_calls(name, x, offsets, mask, weight, bias))
@@ -1739,7 +1865,8 @@ def recipe_checkpoints(recipe: str, argv, data: Path, out: Path,
 WRAPPER_KERNELS = {"deform_sample": "dcn_sample",
                    "deform_sample_tap": "dcn_sample_tap",
                    "deform_sample_onehot": "dcn_sample_onehot",
-                   "deform_conv_fused": "dcn_fused"}
+                   "deform_conv_fused": "dcn_fused",
+                   "deform_sample_backward": "dcn_backward"}
 
 
 @contextlib.contextmanager
@@ -1948,6 +2075,181 @@ def cli_phase():
     return path_launches
 
 
+# ---- the recipe's train.py line (slice 9) -----------------------------------
+
+TRAIN_DIR = BUILD_DIR.parent / "train"
+TRAIN_ITERS = 7                # one epoch: the 30 frames at batch 4
+
+
+def write_train_annotations(data: Path) -> Path:
+    """``annotations/train.json`` beside ``val_half.json`` of the PNG MOT
+    layout (``layout_mot``): every frame of the sequence, its ``gt.txt``
+    rectangles as pedestrian annotations with their track ids, in
+    ``tools/convert_mot_to_coco.py``'s format; the split that
+    ``--dataset_version 17trainval`` trains on."""
+    val = json.loads((data / "annotations" / "val_half.json").read_text())
+    rows = np.loadtxt(data / "train" / "SYN-01" / "gt" / "gt.txt",
+                      delimiter=",", ndmin=2)
+    anns = [{"id": i + 1, "image_id": int(r[0]), "category_id": 1,
+             "bbox": [float(v) for v in r[2:6]], "area": float(r[4] * r[5]),
+             "iscrowd": 0, "track_id": int(r[1]), "conf": 1.0}
+            for i, r in enumerate(rows)]
+    path = data / "annotations" / "train.json"
+    path.write_text(json.dumps(dict(val, annotations=anns)))
+    return path
+
+
+@contextlib.contextmanager
+def no_plain_on_card():
+    """Every plain version in ``cuda_dcn`` raises meanwhile if it is given
+    a CUDA tensor: the run must go through the kernels alone."""
+    saved = {n: getattr(cuda_dcn, n) for n in dir(cuda_dcn)
+             if n.endswith("_reference")}
+
+    def guarded(name, fn):
+        def call(*args, **kwargs):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                raise AssertionError(f"cuda_dcn.{name} ran on the card")
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(cuda_dcn, name, guarded(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(cuda_dcn, name, fn)
+
+
+def train_run(argv):
+    """``deft_tpu_torch.train``'s ``main(argv)`` with its stdout sent to
+    stderr: (stats, launches, x dtypes, peak bytes, resident bytes at the
+    start)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    stats = {}
+    reset_launches()
+    with no_plain_on_card(), sampled_dtypes() as seen, \
+            contextlib.redirect_stdout(sys.stderr):
+        port_train.main(argv, stats)
+    return (stats, launches(), dict(seen), torch.cuda.max_memory_allocated(),
+            resident)
+
+
+def train_phase(data: Path) -> dict:
+    """Slice 9's main path: the MOT recipe's ``train.py`` line of
+    ``experiments/mot17_tracking.sh`` verbatim (``--compute_dtype
+    bfloat16``, batch 4 at 544x960, DLA-34 with the hybrid DCNv2 neck,
+    ``--num_workers`` 4 by default) through ``python -m
+    deft_tpu_torch.train``'s ``main``, with ``--data_dir``, ``--exp_dir
+    exp`` (in ``build/train/``), ``--num_epochs 1``, ``--num_iters 7``
+    and ``--load_model`` naming seeded weights whose offset convs are
+    randomized as the other phases do (``recipe_checkpoints``), on the
+    ``cli_phase`` PNG frames with a ``train.json`` (``write_train_
+    annotations``); then once at float32, then the bf16 line once more
+    with ``--profile`` (device activity from the second step on, over
+    those steps' wall time).  Asserts per step 128
+    launches (16 layers x 4 samples x the image and the pre_image) of T4
+    (bf16) or T1 (float32) and 128 of T5, no other kernel, no plain
+    version on the card (``no_plain_on_card``), finite losses, and
+    ``model_last.pth``.  Then the recipe's ``test.py`` line verbatim (plus
+    ``--data_dir``) loads that ``model_last`` and is scored.  Returns the
+    launches of the unprofiled runs per dtype."""
+    import shutil
+
+    write_train_annotations(data)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    (train_argv,) = [a for (r, script, _), a in recipe_lines().items()
+                     if r == "mot" and script == "train.py"]
+    files, n_dcn, _ = recipe_checkpoints(
+        "mot", recipe_test_argv("mot", data_dir=data.parent,
+                                exp_dir=TRAIN_DIR / "seed", gpus=0),
+        data, TRAIN_DIR / "weights", LAYERS)
+    batch = parse_config(train_argv)[0].batch_size
+    per_step = n_dcn * batch * 2
+    cwd = os.getcwd()
+    os.chdir(TRAIN_DIR)   # the test line names exp/tracking/mot17_train/...
+    launched = {}
+    try:
+        line = with_flags(train_argv, data_dir=data.parent, exp_dir="exp",
+                          num_epochs=1, num_iters=TRAIN_ITERS,
+                          load_model=files["load_model"])
+        for dtype in ("bfloat16", "float32"):
+            argv = with_flags(line, compute_dtype=dtype)
+            t_run = time.perf_counter()
+            stats, count, seen, peak, resident = train_run(argv)
+            t_run = time.perf_counter() - t_run
+            steps = len(stats["step_seconds"])
+            sampler = ("dcn_sample_onehot" if dtype == "bfloat16"
+                       else "dcn_sample")
+            want = {(sampler, dtype): per_step * steps,
+                    ("dcn_backward", dtype): per_step * steps}
+            want_count = dict.fromkeys(KERNELS, 0)
+            want_count.update({k: n for (k, _), n in want.items()})
+            if steps != TRAIN_ITERS or count != want_count or seen != want:
+                raise AssertionError(
+                    f"train {dtype}: {steps} steps, launches {count} on x "
+                    f"{seen}, expected {want}")
+            for when in ("first", "last"):
+                if not all(math.isfinite(v) for v in stats[when].values()):
+                    raise AssertionError(f"train {dtype}: {when} losses "
+                                         f"{stats[when]}")
+            if not Path(stats["checkpoint"]).is_file():
+                raise AssertionError(
+                    f"train {dtype}: no {stats['checkpoint']}")
+            warm = stats["step_seconds"][1:]
+            wait = stats["wait_seconds"][1:]
+            row = {"phase": "train", "recipe": "mot", "dtype": dtype,
+                   "argv": argv, "steps": steps, "batch": batch,
+                   "ms_per_step": statistics.mean(warm) * 1e3,
+                   "median_ms_per_step": statistics.median(warm) * 1e3,
+                   "first_step_ms": stats["step_seconds"][0] * 1e3,
+                   "first_step_wait_ms": stats["wait_seconds"][0] * 1e3,
+                   "samples_per_s": batch / statistics.mean(warm),
+                   "loader_wait_ms_per_step": statistics.mean(wait) * 1e3,
+                   "launches": count,
+                   "launches_per_step": {k: n // steps for k, n in
+                                         count.items() if n},
+                   "x_dtype_launches": {f"{k} {d}": n
+                                        for (k, d), n in seen.items()},
+                   "peak_memory_bytes": peak,
+                   "resident_at_start_bytes": resident,
+                   "main_seconds": t_run,
+                   "loss_first": stats["first"], "loss_last": stats["last"]}
+            if dtype == "bfloat16":
+                pstats = train_run(with_flags(
+                    argv, profile=TRAIN_DIR / "profile"))[0]
+                psteps = pstats["profiled_steps"]
+                wall_ms = sum(pstats["step_seconds"][-psteps:]) * 1e3
+                row.update({
+                    "profiled_steps": psteps,
+                    "profiled_ms_per_step": wall_ms / psteps,
+                    "device_ms_per_step": pstats["device_ms"] / psteps,
+                    "busy_share": pstats["device_ms"] / wall_ms,
+                    "profile_trace": str(TRAIN_DIR / "profile" /
+                                         "trace.json")})
+            emit(row)
+            launched[dtype] = count
+        test_argv = recipe_test_argv("mot", data_dir=data.parent)
+        metrics, tstats, count, _, _, _ = cli_run(test_argv)
+        overall = metrics["overall"]
+        if tstats["frames"] != FRAMES or not overall["num_objects"] > 0:
+            raise AssertionError(f"test line on model_last: {tstats}, "
+                                 f"{overall}")
+        emit({"phase": "train_then_test", "argv": test_argv,
+              "frames": tstats["frames"], "launches": count,
+              "ms_per_frame": tstats["seconds"] * 1e3 / tstats["frames"],
+              "metrics_overall": {k: v for k, v in overall.items()
+                                  if isinstance(v, (int, float))}})
+    finally:
+        os.chdir(cwd)
+    return launched
+
+
 def per_frame_sums(rows, dtype="float32"):
     """Per-frame sums over the layers of ``rows`` ('trained' offsets, x in
     ``dtype``)."""
@@ -1971,7 +2273,7 @@ def sums_entry(sums):
 
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
-                 public_launches, cli_launches):
+                 public_launches, cli_launches, train_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -1979,7 +2281,9 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     it and ``dcn_sample_tap`` their sums over a 384x1280 KITTI frame and
     over a 544x960 MOT frame on a bf16 x, and ``dcn_sample`` and
     ``dcn_sample_onehot`` their sums on a bf16 x over the layers the bf16
-    hybrid gives each, per model (the recipes' test lines)."""
+    hybrid gives each, per model (the recipes' test lines).  The train
+    phase adds its launches: ``dcn_sample`` (float32), ``dcn_sample_onehot``
+    (bf16) and ``dcn_backward`` (both, its only path)."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -1995,7 +2299,8 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                     f"(bf16, layers of <= {HYBRID_CM_CHANNELS} channels)",
                     slice_launches + nuscenes_launches + kitti_launches
                     + public_launches["Detector.run"]
-                    + cli_hybrid["dcn_sample"]),
+                    + cli_hybrid["dcn_sample"]
+                    + train_launches["float32"]["dcn_sample"]),
                 "dcn_sample_tap": (
                     "PipelinedRunner chunk 1 (MOT, MOT public detections, "
                     "KITTI), dcn_impl=pallas; deft_tpu_torch.test on the "
@@ -2007,8 +2312,14 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                     "deft_tpu_torch.test on the recipes' test lines (bf16, "
                     f"dcn_impl=hybrid): MOT and KITTI layers of > "
                     f"{HYBRID_CM_CHANNELS} channels, every nuScenes layer "
-                    "(six cameras as one batch)",
-                    cli_hybrid["dcn_sample_onehot"])}
+                    "(six cameras as one batch); deft_tpu_torch.train on "
+                    "the MOT train line (bf16, every layer of the batch)",
+                    cli_hybrid["dcn_sample_onehot"]
+                    + train_launches["bfloat16"]["dcn_sample_onehot"]),
+                "dcn_backward": (
+                    "deft_tpu_torch.train on the MOT recipe's train line, "
+                    "bf16 and float32 (train phase)",
+                    sum(n["dcn_backward"] for n in train_launches.values()))}
         path_name, count = path.get(name, (
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
@@ -2041,6 +2352,23 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                 f"deft_tpu_torch.test, {recipe} test line, bf16":
                     n[name] for (recipe, impl), n in cli_launches.items()
                 if impl == "hybrid"}
+        if name in ("dcn_sample", "dcn_sample_onehot"):
+            dtype = "float32" if name == "dcn_sample" else "bfloat16"
+            entry["launches_by_path"][
+                f"deft_tpu_torch.train, mot train line, {dtype}, "
+                f"{TRAIN_ITERS} steps"] = train_launches[dtype][name]
+        if name == "dcn_backward":
+            entry["launches_by_path"] = {
+                f"deft_tpu_torch.train, mot train line, {dtype}, "
+                f"{TRAIN_ITERS} steps": n["dcn_backward"]
+                for dtype, n in train_launches.items()}
+            entry["bf16_per_frame"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "mot"], "bfloat16"))
+            entry["design"] = ("one warp per (pixel, tap), lanes over "
+                               "channels, float32 atomicAdd into dx, warp "
+                               "shuffles for doffsets and dmask")
+            entry["same_bits_two_calls"] = all(
+                r["same_bits_two_calls"] for r in mine)
         if name == "dcn_sample":
             entry["launches_by_path"].update({
                 f"Detector.run, MOT, {FRAMES} frames": slice_launches,
@@ -2129,13 +2457,16 @@ def main() -> int:
     lap("public")
     cli_launches = cli_phase()
     lap("cli")
+    train_launches = train_phase(CLI_DIR / "data" / "mot17")
+    lap("train")
     emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
     emit(kernels_line(rows, kernel_launches, slice_launches,
                       runner_rows["test.py"]["launches"]["dcn_sample_tap"],
                       nuscenes_launches, kitti_launches,
-                      kitti_runner_launches, public_launches, cli_launches))
+                      kitti_runner_launches, public_launches, cli_launches,
+                      train_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,12 +12,16 @@ modules carry the reference's key names, so its tensors load as they are:
   matching shape loads, a mis-shaped or missing key keeps the seeded value,
   an unexpected key is dropped, each with a message.
 
-The JAX package's own orbax checkpoints need orbax, which the port does not
-use; they are refused.
+A path without the ``.pth`` suffix, as the recipes write ``--load_model
+exp/tracking/mot17_train/model_last``, names the port trainer's
+``model_last.pth`` where that file exists (``resolve_pth``).  The JAX
+package's own orbax checkpoints need orbax, which the port does not use;
+any other path is refused.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 from collections import OrderedDict
 from typing import Dict, List, NamedTuple
@@ -34,21 +38,39 @@ class TolerantLoad(NamedTuple):
     dropped: List[str]
 
 
+def resolve_pth(path: str) -> str:
+    """``path`` if it ends with ``.pth``; ``path + ".pth"`` where that file
+    exists (the recipes' ``--load_model .../model_last``, which the port's
+    trainer writes as ``model_last.pth``); otherwise raises
+    ``NotImplementedError``: the port reads no orbax checkpoint."""
+    path = str(path)
+    if path.endswith(".pth"):
+        return path
+    if os.path.isfile(path + ".pth"):
+        return path + ".pth"
+    raise NotImplementedError(
+        f"{path}: only reference PyTorch checkpoints (.pth) load in the "
+        "port; the JAX package's orbax checkpoints need orbax")
+
+
+def load_checkpoint_blob(path: str):
+    """The whole ``.pth`` file at ``resolve_pth(path)``, read on the CPU
+    with ``weights_only=True``."""
+    path = resolve_pth(path)
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(f"{path}: not a reference checkpoint of tensors, "
+                         f"numbers and dicts ({e})") from e
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` -> its ``state_dict`` on the CPU, with any
     ``module.`` prefix stripped (``deft_tpu/train/torch_convert.py:30-40``).
     Loaded with ``weights_only=True``: a reference checkpoint holds only
     tensors, numbers and the optimizer's dict, and a file that needs more is
-    refused."""
-    if not str(path).endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: only reference PyTorch checkpoints (.pth) load in the "
-            "port; the JAX package's orbax checkpoints need orbax")
-    try:
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-    except pickle.UnpicklingError as e:
-        raise ValueError(f"{path}: not a reference checkpoint of tensors, "
-                         f"numbers and dicts ({e})") from e
+    refused.  ``path`` may leave out the suffix (``resolve_pth``)."""
+    blob = load_checkpoint_blob(path)
     sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
     return OrderedDict(
         (k[len("module."):] if k.startswith("module.") else k, v)

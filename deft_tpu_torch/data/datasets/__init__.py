@@ -16,6 +16,28 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
+import numpy as np
+
+# ImageNet-style normalization and colour-augmentation constants shared by
+# every dataset (deft_tpu/data/datasets/__init__.py:15-28)
+MEAN = np.array([0.40789654, 0.44719302, 0.47026115], dtype=np.float32)
+STD = np.array([0.28863828, 0.27408164, 0.27809835], dtype=np.float32)
+EIG_VAL = np.array([0.2141788, 0.01817699, 0.00341571], dtype=np.float32)
+EIG_VEC = np.array(
+    [
+        [-0.58752847, -0.69563484, 0.41340352],
+        [-0.5832747, 0.00994535, -0.81221408],
+        [-0.56089297, 0.71832671, 0.41158938],
+    ],
+    dtype=np.float32,
+)
+# nuScenes attribute-consistency ranges per class (generic_dataset.py:83-92)
+NUSCENES_ATT_RANGE = {
+    0: [0, 1], 1: [0, 1],
+    2: [2, 3, 4], 3: [2, 3, 4], 4: [2, 3, 4],
+    5: [5, 6, 7], 6: [5, 6, 7], 7: [5, 6, 7],
+}
+
 
 @dataclass(frozen=True)
 class DatasetInfo:

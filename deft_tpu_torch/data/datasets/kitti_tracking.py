@@ -8,11 +8,18 @@ from __future__ import annotations
 
 import os
 
+from deft_tpu_torch.data.datasets import KITTI_TRACKING_INFO
 from deft_tpu_torch.data.generic_dataset import GenericDataset
 from deft_tpu_torch.track import save_kitti_results
 
 
 class KITTITrackingDataset(GenericDataset):
+    num_categories = KITTI_TRACKING_INFO.num_categories
+    default_resolution = KITTI_TRACKING_INFO.default_resolution
+    class_name = KITTI_TRACKING_INFO.class_name
+    cat_ids = dict(KITTI_TRACKING_INFO.cat_ids)
+    max_objs = KITTI_TRACKING_INFO.max_objs
+
     def __init__(self, cfg, split, data_dir=None):
         data_dir = data_dir or os.path.join("data", "kitti_tracking")
         split_ = "train" if cfg.dataset_version != "test" else "test"

@@ -8,11 +8,18 @@ from __future__ import annotations
 
 import os
 
+from deft_tpu_torch.data.datasets import MOT_INFO
 from deft_tpu_torch.data.generic_dataset import GenericDataset
 from deft_tpu_torch.track import save_mot_results
 
 
 class MOTDataset(GenericDataset):
+    num_categories = MOT_INFO.num_categories
+    default_resolution = MOT_INFO.default_resolution
+    class_name = MOT_INFO.class_name
+    cat_ids = dict(MOT_INFO.cat_ids)
+    max_objs = MOT_INFO.max_objs
+
     def __init__(self, cfg, split, data_dir=None):
         self.dataset_version = cfg.dataset_version
         self.year = (int(self.dataset_version[:2]) if self.dataset_version

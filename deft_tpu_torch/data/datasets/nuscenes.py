@@ -15,11 +15,19 @@ from __future__ import annotations
 import json
 import os
 
+from deft_tpu_torch.data.datasets import NUSCENES_INFO
 from deft_tpu_torch.data.generic_dataset import GenericDataset
 from deft_tpu_torch.track import nuscenes_submission
 
 
 class NuScenesDataset(GenericDataset):
+    num_categories = NUSCENES_INFO.num_categories
+    default_resolution = NUSCENES_INFO.default_resolution
+    class_name = NUSCENES_INFO.class_name
+    cat_ids = dict(NUSCENES_INFO.cat_ids)
+    max_objs = NUSCENES_INFO.max_objs
+    focal_length = NUSCENES_INFO.focal_length
+
     def __init__(self, cfg, split, data_dir=None):
         data_dir = data_dir or os.path.join("data", "nuscenes")
         test = cfg.dataset_version == "test" or split == "test"

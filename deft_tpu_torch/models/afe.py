@@ -1,5 +1,5 @@
 """AFE: appearance-feature extraction + affinity matching head, the
-counterpart of ``deft_tpu/models/afe.py`` (inference half).
+counterpart of ``deft_tpu/models/afe.py``.
 
 Parameters are the reference's (``AFE.selector.<i>``, ``AFE.stacker2_bn``,
 ``AFE.final_net.<i>``): one 3x3 selector conv per feature-map scale, a shared
@@ -19,7 +19,12 @@ package:
   take part in the softmax denominators, as in the reference;
 * ``window_similarity`` evaluates the whole ring window in one batched call.
 
-The training forward (``__call__`` of the JAX module) is not ported yet.
+``forward_train`` is the training forward (``__call__`` of the JAX module,
+``afe.py:140-153``): the [B, N+1, N+1] affinity of two centre sets with the
+false row and column at ``FALSE_CONSTANT``.  In train mode its BatchNorms
+normalize with the batch statistics and update their running statistics as
+flax does (``layers.train_batch_norm``): ``stacker2_bn`` over the pre
+embeddings first, then over the next ones.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deft_tpu_torch.models.layers import Conv2d, batch_norm
+from deft_tpu_torch.models.layers import Conv2d, batch_norm, train_batch_norm
 from deft_tpu_torch.ops.sampling import grid_sample_points
 
 SELECTOR_INPUT_CHANNELS = (16, 32, 64, 128, 256, 512, 64, 128, 256, 512,
@@ -46,7 +51,11 @@ def selector_out_channels(dataset: str) -> Tuple[int, ...]:
 
 
 def _bn_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last axis of any-rank ``x``."""
+    """BatchNorm over the last axis of any-rank ``x``: the running
+    statistics in eval mode, flax's train-mode statistics in train mode."""
+    if bn.training:
+        return train_batch_norm(x.reshape(-1, x.shape[-1]), bn).reshape(
+            x.shape)
     return ((x - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
             * bn.weight + bn.bias)
 
@@ -107,6 +116,18 @@ class AFE(nn.Module):
                 x = _bn_last(x, self._bns[li])
             x = torch.relu(x)
         return x[..., 0]
+
+    def forward_train(self, feature_maps_pre: Sequence[torch.Tensor],
+                      feature_maps_next: Sequence[torch.Tensor],
+                      centers_pre: torch.Tensor,
+                      centers_next: torch.Tensor) -> torch.Tensor:
+        """Training forward (``deft_tpu/models/afe.py:140-153``): two sets
+        of 13 maps and [B, N, 2] centres -> [B, N+1, N+1] affinity, the
+        false row and column at ``FALSE_CONSTANT``."""
+        e_pre = self.extract(feature_maps_pre, centers_pre)
+        e_next = self.extract(feature_maps_next, centers_next)
+        aff = self.affinity(e_pre, e_next)                    # [B, N, M]
+        return F.pad(aff, (0, 1, 0, 1), value=FALSE_CONSTANT)
 
     # ---- inference similarity (dual softmax) ---------------------------------
 

@@ -47,6 +47,17 @@ function rounds:
 
 Any other value raises.  Each function is the hand-written CUDA kernel on the
 card and its plain version on the CPU (``ops/cuda_dcn.py``).
+
+Where autograd records (``torch.is_grad_enabled()``, the training step), the
+same functions run with their sampler wrapped in ``cuda_dcn.trainable``: the
+forward is the same kernel (T1 at float32, T4 on a bfloat16 batch), the
+backward of the sampling T5 (``deform_sample_backward``), and the weight and
+bias gradients autograd of the product.  The JAX package differentiates the
+onehot function there (``deform_conv_onehot_remat``); the two agree away
+from integer sampling positions, and at them the port takes DCNv2's
+one-sided difference (ROADMAP.md, C.3).  Nothing is rematerialized: the
+sampling keeps x, offsets and mask for its backward, the product its
+patches.
 """
 
 from __future__ import annotations
@@ -62,10 +73,21 @@ from deft_tpu_torch.models.layers import Conv2d
 from deft_tpu_torch.ops.cuda_dcn import (KK, deform_conv, deform_conv_cm,
                                          deform_conv_rounded, deform_conv_tap,
                                          deform_sample, deform_sample_onehot,
-                                         deform_sample_tap)
+                                         deform_sample_tap, trainable)
 
 DCN_IMPLS = ("gather", "hybrid", "onehot", "shift", "pallas", "pallas_cm")
 HYBRID_CM_CHANNELS = 128   # pallas_dcn.py:_hybrid_fastest's crossover
+# the sampler each conv function of ``DCNv2._function`` calls
+_SAMPLERS = {deform_conv: deform_sample, deform_conv_cm: deform_sample,
+             deform_conv_tap: deform_sample_tap}
+
+
+def with_grad(fn):
+    """``fn``, a function of ``DCNv2._function``, with its sampler wrapped
+    in ``cuda_dcn.trainable`` (T5 as the sampling's backward)."""
+    if isinstance(fn, functools.partial):      # deform_conv_rounded
+        return functools.partial(fn.func, trainable(fn.args[0]))
+    return functools.partial(fn, sample=trainable(_SAMPLERS[fn]))
 
 
 def resolve_radius(path: str, offset_range: int,
@@ -132,6 +154,8 @@ class DCNv2(nn.Module):
             KK * chi, cho)                                       # tap-major
         xs = x.permute(0, 2, 3, 1)
         fn = self._function(x.dtype, chi, b, x.is_cuda)
+        if torch.is_grad_enabled():
+            fn = with_grad(fn)
         out = torch.stack([
             fn(xs[i].contiguous(), offsets[i].contiguous(),
                mask[i].contiguous(), wk, self.bias, self.radius)

@@ -18,6 +18,12 @@ Entry points, with the JAX layouts at their boundary:
 * ``embed_image(image, centers)`` -> the AFE embeddings at given centres
   (public detections: no heads, no decode);
 * ``extract`` and ``window_similarity`` re-export the AFE head;
+* ``train_forward(image, pre_image, centers_pre, centers_next)`` ->
+  (head outputs, [B, N+1, N+1] affinity), the training step's forward
+  (``deft_tpu/models/deft.py:175-186``): the image through trunk and
+  heads, then the ``pre_image`` through the trunk, then the AFE affinity
+  between their centres; in train mode each BatchNorm updates its
+  statistics in that order;
 * the fused per-frame tracking programs ``frame_step``, ``frame_chunk`` and
   ``frame_chunk_batched`` (``deft_tpu/models/deft.py:319-576``): device warp
   of the raw uint8 frame, detect, the valid-detection prefix, the AFE
@@ -162,6 +168,17 @@ class DEFTNet(DLASeg):
 
     def extract(self, feature_maps, centers):
         return self.AFE.extract(feature_maps, centers)
+
+    def train_forward(self, image: torch.Tensor, pre_image: torch.Tensor,
+                      centers_pre: torch.Tensor, centers_next: torch.Tensor):
+        """Joint training forward (module docstring): image and pre_image
+        [B, H, W, 3] normalized, centres [B, N, 2] in [-1, 1] ->
+        ({head: [B, H/4, W/4, C]} float32, [B, N+1, N+1] affinity)."""
+        outputs, fm_next = self(image)
+        _, fm_pre = self.trunk(pre_image)
+        aff = self.AFE.forward_train(fm_pre, fm_next, centers_pre,
+                                     centers_next)
+        return outputs, aff
 
     def window_similarity(self, window_embeds, window_counts, e_next, n_next):
         return self.AFE.window_similarity(window_embeds, window_counts,

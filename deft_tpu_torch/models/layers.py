@@ -19,7 +19,15 @@ input once, at the trunk's entry.  Parameters stay float32, so a
   does (``x - mean`` promotes to float32, the result is cast to ``dtype``).
   It is never folded into the convolution, which would round elsewhere.
 
-A float32 input runs the ``torch.nn`` module's own forward.
+A float32 input runs the ``torch.nn`` module's own forward in eval mode.
+
+In train mode a BatchNorm is flax's ``BatchNorm(use_running_average=False)``
+(``train_batch_norm``): it normalizes with the batch statistics in float32
+(the biased variance, as torch does too) and updates ``running_mean`` and
+``running_var`` with momentum 0.1 in torch's convention (flax's 0.9), the
+variance the *biased* one, where ``torch.nn.BatchNorm2d`` takes the unbiased
+one.  A module called twice in one step updates its statistics twice, in
+call order.
 """
 
 from __future__ import annotations
@@ -66,11 +74,27 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             self.output_padding, self.groups, self.dilation)
 
 
+def train_batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax's train-mode BatchNorm over every axis of float32 ``x`` but
+    axis 1 (module docstring): the batch-normalized ``x``, and ``bn``'s
+    running statistics updated with the biased batch variance."""
+    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    with torch.no_grad():
+        dims = [d for d in range(x.dim()) if d != 1]
+        var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` in float32 whatever its input, its result in the
-    input's dtype (module docstring)."""
+    input's dtype; in train mode flax's statistics (module docstring)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return train_batch_norm(x.float(), self).to(x.dtype)
         if x.dtype == torch.float32:
             return super().forward(x)
         return super().forward(x.float()).to(x.dtype)

@@ -24,7 +24,18 @@ function (counter)            computes                         replaces (pallas_
 (``LAUNCHES_ONEHOT``)         rounded to bf16, bf16 out        :463 (:511)
 ``deform_conv_fused``         bf16-rounded sampling + float32  ``_dcn_kernel``
 (``LAUNCHES_FUSED``)          product + bias in one kernel     :224 (:270)
+``deform_sample_backward``    the sampling's backward: dx,     no Pallas kernel: the
+(``LAUNCHES_BACKWARD``)       doffsets, dmask from the         ``jax.vjp`` of
+                              patches' gradient                ``deform_conv_onehot``
+                                                               :167 (:733-787)
 ============================  ===============================  ======================
+
+``DeformSample`` is the autograd function around the samplers on the
+training route: its forward is the sampler it is given (T1 on a float32 x,
+T4 on a bfloat16 x, as inference picks them), its backward T5.  The weight
+and bias gradients and ``g @ weight.T`` stay autograd of the ``torch.mm`` /
+``addmm`` that follow the sampling, as the JAX package leaves those plain
+products to XLA.  ``trainable(sample)`` is a sampler with that backward.
 
 Which ``dcn_impl`` computes which function (``models/dcn.py`` dispatches):
 
@@ -86,6 +97,7 @@ LAUNCHES = 0
 LAUNCHES_TAP = 0
 LAUNCHES_ONEHOT = 0
 LAUNCHES_FUSED = 0
+LAUNCHES_BACKWARD = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -94,6 +106,7 @@ _SIGNATURES = {                       # library -> entry -> argtypes
                    for name in ("dcn_sample", "dcn_sample_tap")},
     "dcn_onehot": {"dcn_sample_onehot": [_P] * 4 + [_I] * 9 + [_P]},
     "dcn_fused": {"dcn_fused": [_P] * 7 + [_I] * 9 + [_P]},
+    "dcn_backward": {"dcn_backward": [_P] * 7 + [_I] * 6 + [_P]},
 }
 _LIBRARY = {entry: library for library, entries in _SIGNATURES.items()
             for entry in entries}
@@ -560,6 +573,151 @@ def deform_conv_fused(x: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+# ---- T5: the sampling's backward --------------------------------------------
+
+def _check_backward(g, x, offsets, mask):
+    h, w, c = x.shape
+    if tuple(g.shape) != (h * w, KK * c):
+        raise ValueError(f"g must be [{h * w}, {KK * c}], got "
+                         f"{tuple(g.shape)}")
+    if g.device != x.device:
+        raise ValueError("g must be on x's device")
+
+
+def deform_sample_backward_reference(g: torch.Tensor, x: torch.Tensor,
+                                     offsets: torch.Tensor, mask: torch.Tensor,
+                                     radius: int):
+    """Plain version of T5, a gather formulation: the four corners of every
+    (pixel, tap) as ``deform_sample_reference`` samples them, then
+
+    * dx: ``g * mask * corner weight`` added into each in-image corner
+      (``index_add_``), in x's dtype;
+    * doffsets [H, W, 9, 2]: ``mask * sum_c g * d(bilinear)/d(dy, dx)``,
+      zero where the offset lies past +-radius (the clamp's gradient);
+    * dmask [H, W, 9]: ``sum_c g * bilinear``.
+
+    The blend's derivative is DCNv2's (the reference's
+    ``modulated_deformable_col2im_coord``): corners floor(pos) and
+    floor(pos) + 1, so at an integer position it is the one-sided
+    difference v(pos + 1) - v(pos) -- not JAX's subgradient there
+    (ROADMAP.md, C.3).  Float32 arithmetic (float64 for float64 inputs,
+    which ``torch.autograd.gradcheck`` uses); doffsets and dmask in the
+    offsets' dtype."""
+    _check_backward(g, x, offsets, mask)
+    h, w, c = x.shape
+    dev = x.device
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    gf = g.to(work).reshape(h, w, KK, c)
+    off = offsets.to(work)
+    m = mask.to(work)
+    oy, ox = off[..., 0], off[..., 1]
+    if radius >= 0:
+        pass_y = ((oy >= -radius) & (oy <= radius)).to(work)
+        pass_x = ((ox >= -radius) & (ox <= radius)).to(work)
+        oy = oy.clamp(-radius, radius)
+        ox = ox.clamp(-radius, radius)
+    else:
+        pass_y = pass_x = torch.ones_like(oy)
+    ky, kx = _tap_grid(dev)
+    yy = (torch.arange(h, dtype=work, device=dev)[:, None, None]
+          + ky.to(work) + oy)                                 # [H, W, KK]
+    xx = (torch.arange(w, dtype=work, device=dev)[None, :, None]
+          + kx.to(work) + ox)
+    y0 = torch.floor(yy)
+    x0 = torch.floor(xx)
+    ly = yy - y0
+    lx = xx - x0
+    hy = 1.0 - ly
+    hx = 1.0 - lx
+    flat = x.to(work).reshape(h * w, c)
+
+    def corner(yi, xi):
+        inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+        vals = flat[idx.reshape(-1)].reshape(h, w, KK, c) * inb[..., None]
+        return vals, idx, inb
+
+    v00, i00, b00 = corner(y0, x0)
+    v01, i01, b01 = corner(y0, x0 + 1)
+    v10, i10, b10 = corner(y0 + 1, x0)
+    v11, i11, b11 = corner(y0 + 1, x0 + 1)
+    e = lambda t: t[..., None]                                # noqa: E731
+    val = e(hy) * (e(hx) * v00 + e(lx) * v01) + e(ly) * (e(hx) * v10
+                                                         + e(lx) * v11)
+    d_dy = e(hx) * (v10 - v00) + e(lx) * (v11 - v01)
+    d_dx = e(hy) * (v01 - v00) + e(ly) * (v11 - v10)
+    dmask = (gf * val).sum(-1)
+    doffsets = torch.stack([(gf * d_dy).sum(-1) * m * pass_y,
+                            (gf * d_dx).sum(-1) * m * pass_x], dim=-1)
+    gm = gf * e(m)
+    dx = torch.zeros((h * w, c), dtype=work, device=dev)
+    for idx, inb, wgt in ((i00, b00, hy * hx), (i01, b01, hy * lx),
+                          (i10, b10, ly * hx), (i11, b11, ly * lx)):
+        dx.index_add_(0, idx.reshape(-1),
+                      (gm * e(wgt * inb)).reshape(-1, c))
+    return (dx.reshape(h, w, c).to(x.dtype), doffsets.to(offsets.dtype),
+            dmask.to(offsets.dtype))
+
+
+def deform_sample_backward(g: torch.Tensor, x: torch.Tensor,
+                           offsets: torch.Tensor, mask: torch.Tensor,
+                           radius: int):
+    """T5 (``dcn_backward``): the gradients (dx in x's dtype, doffsets
+    [H, W, 9, 2] float32, dmask [H, W, 9] float32) of the sampling of x at
+    ``offsets`` and ``mask`` given g = dL/dpatches ``[H*W, 9*C]`` (float32
+    or bfloat16).  dx is summed in float32 with atomics, so its bits may
+    change from call to call; the plain version is
+    ``deform_sample_backward_reference``."""
+    global LAUNCHES_BACKWARD
+    _check_inputs(x, offsets, mask)
+    _check_backward(g, x, offsets, mask)
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
+    if not _on_card("deform_sample_backward", x, offsets, mask, g):
+        return deform_sample_backward_reference(g, x, offsets, mask, radius)
+    h, w, c = x.shape
+    dx = torch.zeros((h, w, c), dtype=torch.float32, device=x.device)
+    doffsets = torch.empty((h, w, KK, 2), dtype=torch.float32,
+                           device=x.device)
+    dmask = torch.empty((h, w, KK), dtype=torch.float32, device=x.device)
+    _launch("dcn_backward", dx, g.data_ptr(), x.data_ptr(),
+            offsets.data_ptr(), mask.data_ptr(), dx.data_ptr(),
+            doffsets.data_ptr(), dmask.data_ptr(), h, w, c, int(radius),
+            _DTYPES[x.dtype], _DTYPES[g.dtype])
+    LAUNCHES_BACKWARD += 1
+    return dx.to(x.dtype), doffsets, dmask
+
+
+class DeformSample(torch.autograd.Function):
+    """A sampler with T5 as its backward: ``DeformSample.apply(sample, x,
+    offsets, mask, radius)`` is ``sample(x, offsets, mask, radius)``, and
+    its backward returns dx, doffsets and dmask from
+    ``deform_sample_backward`` (x, offsets and mask are kept for it, not
+    the patches)."""
+
+    @staticmethod
+    def forward(ctx, sample, x, offsets, mask, radius):
+        ctx.save_for_backward(x, offsets, mask)
+        ctx.radius = radius
+        return sample(x, offsets, mask, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offsets, mask = ctx.saved_tensors
+        dx, doffsets, dmask = deform_sample_backward(
+            g.contiguous(), x, offsets, mask, ctx.radius)
+        return None, dx, doffsets, dmask, None
+
+
+def trainable(sample):
+    """``sample`` (a sampler of this module) with T5 as its backward."""
+    def sample_with_grad(x, offsets, mask, radius):
+        return DeformSample.apply(sample, x, offsets, mask, radius)
+
+    sample_with_grad.__name__ = f"trainable_{sample.__name__}"
+    return sample_with_grad
+
+
 # ---- convolutions: sampling, then the [9C, Cout] product as a library GEMM --
 
 def _product(patches, weight, bias, h, w, out_dtype):
@@ -569,26 +727,28 @@ def _product(patches, weight, bias, h, w, out_dtype):
 
 
 def deform_conv(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
-                weight: torch.Tensor, bias: torch.Tensor,
-                radius: int) -> torch.Tensor:
+                weight: torch.Tensor, bias: torch.Tensor, radius: int,
+                sample=deform_sample) -> torch.Tensor:
     """Modulated deformable 3x3 conv with the JAX functions' contract
-    (``deform_conv_onehot``): ``deform_sample`` patches times the weight, in
-    x's dtype -> ``[H, W, Cout]``."""
+    (``deform_conv_onehot``): ``deform_sample`` patches (or ``sample``'s,
+    e.g. ``trainable(deform_sample)``) times the weight, in x's dtype ->
+    ``[H, W, Cout]``."""
     h, w, _ = x.shape
-    patches = deform_sample(x, offsets, mask, radius)
+    patches = sample(x, offsets, mask, radius)
     out = torch.addmm(bias.to(patches.dtype), patches,
                       weight.to(patches.dtype))
     return out.reshape(h, w, -1)
 
 
 def deform_conv_tap(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
-                    weight: torch.Tensor, bias: torch.Tensor,
-                    radius: int) -> torch.Tensor:
-    """``deform_conv_pallas_tap`` (pallas_dcn.py:438): T2's patches, then the
-    float32 product with the weight plus the bias (:452), in x's dtype."""
+                    weight: torch.Tensor, bias: torch.Tensor, radius: int,
+                    sample=deform_sample_tap) -> torch.Tensor:
+    """``deform_conv_pallas_tap`` (pallas_dcn.py:438): T2's patches (or
+    ``sample``'s), then the float32 product with the weight plus the bias
+    (:452), in x's dtype."""
     h, w, _ = x.shape
-    return _product(deform_sample_tap(x, offsets, mask, radius), weight, bias,
-                    h, w, x.dtype)
+    return _product(sample(x, offsets, mask, radius), weight, bias, h, w,
+                    x.dtype)
 
 
 def deform_conv_onehot_sampled(x: torch.Tensor, offsets: torch.Tensor,
@@ -620,13 +780,13 @@ def deform_conv_rounded(sample, x: torch.Tensor, offsets: torch.Tensor,
 
 
 def deform_conv_cm(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
-                   weight: torch.Tensor, bias: torch.Tensor,
-                   radius: int) -> torch.Tensor:
+                   weight: torch.Tensor, bias: torch.Tensor, radius: int,
+                   sample=deform_sample) -> torch.Tensor:
     """``deform_conv_pallas_cm`` (pallas_dcn.py:669-729) as the TPU computes
-    it: ``deform_sample`` on a bfloat16 copy of x (bfloat16 patches), their
-    float32 product with the weight rounded to bfloat16, plus the bias, in
-    x's dtype (:726-728)."""
+    it: ``deform_sample`` (or ``sample``) on a bfloat16 copy of x (bfloat16
+    patches), their float32 product with the weight rounded to bfloat16,
+    plus the bias, in x's dtype (:726-728)."""
     h, w, _ = x.shape
-    patches = deform_sample(x.to(torch.bfloat16).contiguous(), offsets, mask,
-                            radius)
+    patches = sample(x.to(torch.bfloat16).contiguous(), offsets, mask,
+                     radius)
     return _product(patches, _round_bf16(weight), bias, h, w, x.dtype)

@@ -1,0 +1,79 @@
+"""Training checkpoints, the counterpart of ``deft_tpu/train/checkpoint.py``.
+
+The port saves what the reference DEFT trainer saves (its ``model.py``
+``save_model``): a ``.pth`` file of ``{"epoch", "state_dict", "optimizer"}``
+with the reference's key names, plus ``s_det``, ``s_id`` and ``step`` (the
+updates made, which place the learning-rate schedule).  The file is one that
+``deft_tpu_torch.test`` loads (``cfg.load_model``), and that the reference's
+own loader reads.
+
+``load_train_state`` resumes a ``Trainer`` from such a file: the model's
+tensors tolerantly (``checkpoint.load_tolerant``: a mis-shaped or missing
+key keeps its value, an unexpected key is dropped), the optimizer's state
+where its parameter groups match (else fresh moments, with a message), the
+uncertainty weights and the step (where the file has none, ``epoch *
+steps_per_epoch``, as the JAX package derives it).  Orbax checkpoints of the
+JAX package stay refused (``checkpoint.resolve_pth``).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from deft_tpu_torch.checkpoint import load_checkpoint_blob, load_tolerant
+
+
+def save_checkpoint(path: str, trainer, epoch: int) -> str:
+    """Write ``trainer``'s model, optimizer, uncertainty weights and step
+    at ``epoch`` to ``path`` (``.pth`` appended if missing); returns the
+    path."""
+    path = str(path)
+    if not path.endswith(".pth"):
+        path += ".pth"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    blob = {
+        "epoch": int(epoch),
+        "state_dict": {k: v.detach().cpu()
+                       for k, v in trainer.model.state_dict().items()},
+        "optimizer": trainer.optimizer.state_dict(),
+        "s_det": float(trainer.s_det.detach()),
+        "s_id": float(trainer.s_id.detach()),
+        "step": int(trainer.step),
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(path: str, trainer) -> int:
+    """Restore ``trainer`` from the checkpoint at ``path`` (module
+    docstring); returns the checkpoint's epoch."""
+    blob = load_checkpoint_blob(path)
+    sd = blob.get("state_dict", blob)
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in sd.items()}
+    load_tolerant(trainer.model, sd)
+    epoch = int(blob.get("epoch", 0))
+    with torch.no_grad():
+        for name in ("s_det", "s_id"):
+            if name in blob:
+                getattr(trainer, name).fill_(float(blob[name]))
+    step = blob.get("step")
+    if step is None:
+        step = epoch * trainer.steps_per_epoch
+        if "optimizer" in blob:
+            print("checkpoint: no step recorded; deriving LR-schedule step "
+                  f"from epoch ({epoch} * {trainer.steps_per_epoch})")
+    trainer.step = int(step)
+    if "optimizer" in blob:
+        try:
+            trainer.optimizer.load_state_dict(blob["optimizer"])
+        except (KeyError, ValueError, TypeError) as e:
+            print(f"checkpoint: optimizer state incompatible ({e}); "
+                  "keeping fresh optimizer moments")
+    else:
+        print("checkpoint: no optimizer state saved; fresh moments")
+    return epoch

@@ -90,7 +90,12 @@ NEW_MODULES = ("deft_tpu_torch.cli", "deft_tpu_torch.test",
                "deft_tpu_torch.data.datasets.mot",
                "deft_tpu_torch.data.datasets.kitti_tracking",
                "deft_tpu_torch.data.datasets.nuscenes",
-               "deft_tpu_torch.utils.logger")
+               "deft_tpu_torch.utils.logger",
+               "deft_tpu_torch.train.run", "deft_tpu_torch.train.trainer",
+               "deft_tpu_torch.train.losses",
+               "deft_tpu_torch.train.checkpoint",
+               "deft_tpu_torch.data.loader", "deft_tpu_torch.ops.gaussian",
+               "deft_tpu_torch.ops.warp")
 
 
 def test_new_modules_import_no_jax_cv2_or_pil():

@@ -47,7 +47,10 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import deft_tpu_torch, deft_tpu_torch.inference.detector, "
         "deft_tpu_torch.convert, deft_tpu_torch.csrc.build, "
-        "deft_tpu_torch.ops.cuda_dcn\n"
+        "deft_tpu_torch.ops.cuda_dcn, deft_tpu_torch.train.run, "
+        "deft_tpu_torch.train.trainer, deft_tpu_torch.train.losses, "
+        "deft_tpu_torch.train.checkpoint, deft_tpu_torch.data.loader, "
+        "deft_tpu_torch.data.generic_dataset, deft_tpu_torch.ops.gaussian\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deft_tpu'))\n"
         "print(','.join(bad))\n"

@@ -330,3 +330,54 @@ def test_lstm_step_on_card_is_the_cell_update(cuda_device):
         h2, c2, _ = rnn.step(h, c, x)
         want = cell(x, (h, c))
     assert torch.equal(h2, want[0]) and torch.equal(c2, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
+                                   (34, 60, 256)])
+@pytest.mark.parametrize("radius", [4, -1])
+def test_dcn_backward_matches_plain(cuda_device, h, w, c, dtype, radius):
+    """T5 against its plain version: doffsets and dmask (float32 sums over C
+    in another order) within 1e-5 x max|plain|; dx (float32 atomics, in an
+    order that changes from call to call) within 1e-5 x max|plain|, one
+    bf16 step (2^-7 x max|plain|) when cast to a bf16 x."""
+    x, offs, mask = _inputs(h, w, c, 9, cuda_device, dtype)
+    rng = np.random.RandomState(10)
+    g = torch.from_numpy(rng.randn(h * w, 9 * c).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = cuda_dcn.LAUNCHES_BACKWARD
+    got = cuda_dcn.deform_sample_backward(g, x, offs, mask, radius)
+    torch.cuda.synchronize()
+    assert cuda_dcn.LAUNCHES_BACKWARD == before + 1
+    ref = cuda_dcn.deform_sample_backward_reference(g, x, offs, mask, radius)
+    assert got[0].dtype == dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for i, (a, b) in enumerate(zip(got, ref)):
+        rel = 2.0 ** -7 if (i == 0 and dtype == torch.bfloat16) else 1e-5
+        err = (a.float() - b.float()).abs().max()
+        assert err <= rel * b.float().abs().max()
+
+
+def test_trainable_sampler_gradients_on_card(cuda_device):
+    """The conv through ``trainable(deform_sample)`` on the card: T1
+    forward, T5 backward, the product's gradients from autograd; the same
+    gradients as the plain versions' on the CPU within 1e-4 x max."""
+    x, offs, mask = _inputs(12, 15, 24, 11, torch.device("cpu"),
+                            torch.float32)
+    rng = np.random.RandomState(12)
+    wt = torch.from_numpy(rng.randn(9 * 24, 8).astype(np.float32) * 0.1)
+    b = torch.from_numpy(rng.randn(8).astype(np.float32))
+    gout = torch.from_numpy(rng.randn(12, 15, 8).astype(np.float32))
+
+    def grads(dev):
+        args = [t.to(dev).requires_grad_() for t in (x, offs, mask, wt, b)]
+        out = cuda_dcn.deform_conv(*args, 4, sample=cuda_dcn.trainable(
+            cuda_dcn.deform_sample))
+        out.backward(gout.to(dev))
+        return [a.grad.cpu() for a in args]
+
+    before = cuda_dcn.LAUNCHES_BACKWARD
+    card = grads(cuda_device)
+    assert cuda_dcn.LAUNCHES_BACKWARD == before + 1
+    for a, b_ in zip(card, grads(torch.device("cpu"))):
+        assert (a - b_).abs().max() <= 1e-4 * b_.abs().max()

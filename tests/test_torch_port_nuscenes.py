@@ -6,6 +6,9 @@ the LSTM step with carried weights; the per-class 3-D tracker with the LSTM
 on scripted frames; ``Detector.run_multi`` on synthetic nuScenes scenes
 (``tools/make_synthetic_nuscenes.py``, two cameras, and the port's own
 six-camera rig) and the submission.  Inputs come from seeded numpy.
+``run_multi`` against the JAX package's is in
+``test_torch_port_nuscenes_run_multi.py`` (this file's fixtures and
+helpers, a worker of its own).
 """
 
 import copy
@@ -483,40 +486,6 @@ def samples(frames):
     for info, frame in frames:
         by.setdefault(info["frame_id"], []).append((info, frame))
     return [by[k] for k in sorted(by)]
-
-
-@pytest.mark.parametrize("rig", ["tool, 2 cameras", "port, 6 cameras"])
-def test_run_multi_matches_jax(nus_scene, detectors, rig):
-    """Per sample, the JAX ``run_multi`` on the frames and the port's on
-    the JAX-warped inputs (the two packages warp differently by design):
-    the same tracks per camera, boxes within BOX_TOL.  The scenes: the
-    tool's, and the port's six-camera rig."""
-    jdet, port = detectors
-    jdet.ids = JaxIds()                 # ids from 1, as the fresh port's
-    jdet.reset_tracking()
-    pdet = port()
-    frames = (nus_scene[1] if rig.startswith("tool") else
-              make_scene(n_samples=3, cameras=6, height=180, width=320,
-                         n_objects=16, seed=4))
-    n_tracks = []
-    for sample in samples(frames):
-        infos = [info for info, _ in sample]
-        metas = [{"calib": info["calib"]} for info in infos]
-        prepared = [dict(zip(("images", "meta"),
-                             jdet.pre_process(frame, 1.0, meta)))
-                    for (_, frame), meta in zip(sample, metas)]
-        dets, _ = jdet.process(np.concatenate([p["images"] for p in prepared]))
-        scores = dets["scores"]
-        # the order and the cuts are stable only with margins above the
-        # score tolerance
-        for cut in (jdet.cfg.out_thresh, 0.3, 0.35):
-            assert np.abs(scores - cut).min() > 10 * SCORE_TOL
-        want = jdet.run_multi([f for _, f in sample], metas, infos,
-                              materialize=snapshot)
-        got = pdet.run_multi(prepared, None, infos, materialize=snapshot)
-        check_cameras(got, want, BOX_TOL)
-        n_tracks.append(sum(len(c) for c in want))
-    assert min(n_tracks) >= 2 and sum(n_tracks) >= 4 * len(n_tracks), n_tracks
 
 
 def test_run_multi_equals_sequential_run(detectors):

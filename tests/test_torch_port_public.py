@@ -16,11 +16,14 @@ program compiles once for the file: compiles are most of its time.
 Per module: ``public_det_centers`` in both modes on ``tests/
 test_public_det.py``'s 270x480 -> 128x160 geometry; ``embed_image``;
 ``detect`` under ``parity_tf``; ``frame_step_embed`` with its ring; the
-public ``Detector.run`` and runner as wholes; ``data/public_dets.py``
-against ``tools/convert_mot_det_to_results.py``; the refusals that stay.
+``data/public_dets.py`` against ``tools/convert_mot_det_to_results.py``;
+the refusals that stay.  ``embed_image`` and the public runner, which run
+the JAX T2 kernel in interpret mode, are in
+``test_torch_port_public_pallas.py``, and the public ``Detector.run`` as a
+whole in ``test_torch_port_public_detector.py`` (this file's fixture and
+helpers, each on a worker of its own).
 """
 
-import functools
 import json
 import os
 import sys
@@ -31,13 +34,11 @@ import numpy as np
 import pytest
 import torch
 
-import deft_tpu.ops.pallas_dcn as pallas_dcn
 from deft_tpu.config import mot_config
 from deft_tpu.inference.detector import Detector as JaxDetector
 from deft_tpu.inference.detector import (
     public_det_centers as jax_public_det_centers,
 )
-from deft_tpu.inference.runner import PipelinedRunner as JaxRunner
 from deft_tpu.models import create_model as jax_create_model
 from deft_tpu.models.dla import DLA_PLANS
 from deft_tpu.train.torch_convert import TorchConverter
@@ -52,8 +53,6 @@ from deft_tpu_torch.inference.detector import (
 from deft_tpu_torch.inference.runner import PipelinedRunner
 from deft_tpu_torch.models.deft import new_ring
 from deft_tpu_torch.models.factory import create_model
-from deft_tpu_torch.track import track_videos, track_videos_detector
-from deft_tpu_torch.tracking.basetrack import IdAllocator
 from deft_tpu_torch.tracking.tracker import freshness_window
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -207,73 +206,6 @@ def test_public_det_centers_match_jax(embed_parity):
 
 # ---- the model's entry points ------------------------------------------------
 
-@pytest.fixture(scope="module")
-def pallas_runs(setup):
-    """``dcn_impl="pallas"`` on both sides, the JAX T2 kernel in interpret
-    mode: the JAX public runner over 6 frames at the input size (its
-    jitted ``frame_step_embed`` compiled once), and through that program
-    the JAX embeddings of frame 1's boxes (its ring row 0 after one step
-    on an empty ring)."""
-    frames, boxes = scene(SIZE["input_h"], SIZE["input_w"])
-    dets = public(boxes, SIZE["input_h"], SIZE["input_w"], seed=2)
-    dets[3] = dets[4]                  # every frame public here
-    cfg = setup["cfg"].replace(dcn_impl="pallas")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pallas_dcn, "deform_conv_pallas_tap", functools.partial(
-            pallas_dcn.deform_conv_pallas_tap, interpret=True))
-        jrun = JaxRunner(JaxDetector(cfg, model=jax_create_model(cfg.arch,
-                                                                 cfg),
-                                     variables=setup["variables"]),
-                         depth=2, chunk=4)
-        empty = jax.tree.map(jnp.zeros_like, jrun.state)
-        want = [[(t.track_id, np.asarray(t.tlbr)) for t in online]
-                for online in jrun.track_sequence(
-                    frames, [_meta(d) for d in dets])]
-        warped, meta = jrun.warp(frames[1], _meta(dets[1]))
-        centers, n = public_det_centers(dets[1], meta, SIZE["max_object"])
-        _, state = jrun._step_embed(setup["variables"], jnp.asarray(warped),
-                                    jnp.asarray(centers), jnp.int32(n),
-                                    empty)
-    prun = PipelinedRunner(Detector(setup["pcfg"].replace(dcn_impl="pallas"),
-                                    setup["sd"], device="cpu"),
-                           depth=2, chunk=4)
-    return {"frames": frames, "dets": dets, "jrun": jrun, "prun": prun,
-            "want": want, "emb": (warped, centers, n,
-                                  np.asarray(state["embeds"][0][:n]))}
-
-
-@pytest.mark.parametrize("impl", ["hybrid", "pallas"])
-def test_embed_image_matches_jax(setup, pallas_runs, impl):
-    """The trunk and the AFE at public centres (ten boxes, eight of which
-    fit): hybrid float32 within EMB_TOL against the JAX ``embed_image``,
-    pallas within PALLAS_RTOL against the embeddings the JAX public
-    runner's program writes into its ring."""
-    if impl == "hybrid":
-        inp = setup["inputs"][1]
-        image = inp["images"]
-        centers, n = public_det_centers(setup["dets"][1], inp["meta"],
-                                        SIZE["max_object"])
-        want = np.asarray(setup["jdet"]._embed(
-            setup["variables"], jnp.asarray(image),
-            jnp.asarray(centers[None])))[0]
-        port = setup["pdet"].model
-    else:
-        warped, centers, n, want = pallas_runs["emb"]
-        image = warped[None]
-        port = pallas_runs["prun"].det.model
-    assert n == SIZE["max_object"]
-    with torch.no_grad():
-        got = port.embed_image(torch.from_numpy(image),
-                               torch.from_numpy(centers[None]))[0].numpy()
-    assert got.shape == (n, port.embed_dim) and want.shape[0] == n
-    want = want[:n]
-    if impl == "hybrid":
-        np.testing.assert_allclose(got, want, rtol=0, atol=EMB_TOL)
-    else:
-        assert (np.abs(got - want)
-                <= PALLAS_RTOL * (np.abs(want) + np.abs(want).max())).all()
-
-
 def test_detect_parity_tf_matches_jax(setup):
     """``detect`` under ``parity_tf`` (the reference's original-dims
     normalization): decoded boxes within BOX_TOL, embeddings within
@@ -362,97 +294,6 @@ def test_frame_step_embed_matches_jax(setup, jax_step_embed, sims_quant):
         np.testing.assert_allclose(state["embeds"].numpy(), jstate["embeds"],
                                    rtol=0, atol=EMB_TOL)
     assert state["counts"].numpy()[:3].tolist() == [5, m, 0]
-
-
-# ---- the paths as wholes ----------------------------------------------------
-
-def _canon(tracks):
-    return [(t.track_id, np.asarray(t.tlbr)) for t in tracks]
-
-
-def test_detector_run_public_matches_jax(setup):
-    """``Detector.run`` under ``public_det`` on the JAX package's
-    prefetched inputs: ids exact and boxes within BOX_TOL per frame.
-    Frame 3 carries no ``cur_dets`` and takes the model path in both."""
-    jdet, pdet = setup["jdet"], setup["pdet"]
-    jdet.reset_tracking()
-    pdet.ids = IdAllocator()          # ids from 1, as the fresh JAX one's
-    pdet.reset_tracking()
-    pdet.timers.reset()
-    n_tracks = []
-    for f, inp in enumerate(setup["inputs"]):
-        want = _canon(jdet.run(inp))
-        got = _canon(pdet.run(inp))
-        assert [i for i, _ in got] == [i for i, _ in want], f
-        for (_, a), (_, b) in zip(got, want):
-            np.testing.assert_allclose(a, b, rtol=0, atol=BOX_TOL)
-        n_tracks.append(len(got))
-    dets = setup["dets"]
-    assert all(n <= min(len(d), SIZE["max_object"])
-               for n, d in zip(n_tracks, dets) if d is not None), n_tracks
-    assert n_tracks[3] > 0 and min(n_tracks[4:]) >= 4, n_tracks
-    # the public frames ran no post stage; the model-path frame did
-    assert pdet.timers.count == {"pre": 6, "net": 6, "post": 1, "track": 6,
-                                 "tot": 6}
-
-
-def test_track_videos_detector_public(setup):
-    """``track_videos_detector(public_dets=...)`` injects each frame's
-    boxes as ``cur_dets`` into the prefetched inputs' meta."""
-    inputs = [{"images": i["images"],
-               "meta": {k: v for k, v in i["meta"].items()
-                        if k != "cur_dets"}} for i in setup["inputs"]]
-    ids = list(range(100, 100 + FRAMES))
-    by_image = {i: d for i, d in zip(ids, setup["dets"]) if d is not None}
-    pdet = setup["pdet"]
-    runs = []
-    for frames, by in ((setup["inputs"], None), (inputs, by_image)):
-        pdet.ids = IdAllocator()
-        runs.append(track_videos_detector(pdet, [(1, list(zip(ids, frames)))],
-                                          public_dets=by))
-    plain, injected = runs
-    for i in ids:
-        assert ([it["tracking_id"] for it in injected[i]]
-                == [it["tracking_id"] for it in plain[i]]), i
-        for a, b in zip(injected[i], plain[i]):
-            np.testing.assert_array_equal(a["bbox"], b["bbox"])
-    assert min(len(injected[i]) for i in ids[4:]) >= 4
-
-
-def test_runner_public_matches_jax(pallas_runs):
-    """The public runner (``dcn_impl="pallas"``) against the JAX one, both
-    asked for chunk 4 and both running chunk 1.  The frames are at the
-    input's size, so the JAX host warp and the port's device warp are both
-    the identity (asserted).  Ids exact, boxes within BOX_TOL."""
-    frames, dets = pallas_runs["frames"], pallas_runs["dets"]
-    jrun, prun = pallas_runs["jrun"], pallas_runs["prun"]
-    assert jrun.chunk == prun.chunk == 1
-    warped, meta = jrun.warp(frames[0], _meta(dets[0]))
-    np.testing.assert_array_equal(warped, frames[0])
-    assert meta["cur_dets"] is dets[0]
-    raw, pmeta = prun.warp(frames[0], _meta(dets[0]))
-    assert pmeta["cur_dets"] is dets[0]
-    model = prun.det.model
-    with torch.no_grad():
-        np.testing.assert_array_equal(
-            model._warp_normalize(torch.from_numpy(raw)[None],
-                                  pmeta["warp_tf"],
-                                  (SIZE["input_h"], SIZE["input_w"])).numpy(),
-            model._maybe_normalize(torch.from_numpy(frames[0])[None]).numpy())
-
-    ids = list(range(FRAMES))
-    results = track_videos(prun, [(1, list(zip(ids, frames)))],
-                           public_dets=dict(zip(ids, dets)))
-    assert len(pallas_runs["want"]) == FRAMES
-    for f, (want, i) in enumerate(zip(pallas_runs["want"], ids)):
-        got = results[i]
-        assert [it["tracking_id"] for it in got] == [t for t, _ in want], f
-        for it, (_, box) in zip(got, want):
-            np.testing.assert_allclose(it["bbox"], box, rtol=0, atol=BOX_TOL)
-        assert len(got) <= min(len(dets[f]), SIZE["max_object"])
-    assert min(len(results[i]) for i in ids[3:]) >= 4
-    keys = prun.timings()
-    assert {"dispatch", "casc_track", "cascade"} <= set(keys)
 
 
 # ---- the det-file mapping -----------------------------------------------------
