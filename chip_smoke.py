@@ -47,11 +47,22 @@ max_object=100, 50-slot rings) with seeded random weights:
   and float32, and the MOT line at bf16 with ``--dcn_impl pallas``;
 * slice 9, the MOT recipe's ``train.py`` line through ``python -m
   deft_tpu_torch.train``'s ``main`` (``train_phase``: batch 4 at 544x960,
-  an epoch of the slice 8 PNG frames, bf16 and float32, then the recipe's
-  test line on the ``model_last.pth`` written), every DCNv2 layer of every
+  an epoch of the slice 8 PNG frames, bf16 under the profiler and
+  float32; slice 10 runs the recipe's other lines on the ``model_last.pth``
+  written), every DCNv2 layer of every
   sample forward through ``dcn_sample_onehot`` (bf16) or ``dcn_sample``
   (float32) and backward through ``dcn_backward`` (T5, also held against
   its plain version at the 7 MOT shapes in the kernel phase);
+* slice 10, every line of the three recipes in the order of
+  ``experiments/*.sh``, each on what the line before it wrote
+  (``recipes_phase``, in ``build/train/``): the KITTI and nuScenes
+  ``train.py`` lines at bf16 (batch 4 at 384x1280 on 30 PNG frames, and
+  at 448x800 on 20 samples x 6 cameras; T4 forward and T5 backward, T5
+  also held at their 14 layer shapes in the kernel phase), each recipe's
+  ``train_prediction.py`` line through ``python -m
+  deft_tpu_torch.train_prediction`` (the LSTM motion model on the card),
+  and each ``test.py`` line on the ``model_last`` files written, the
+  nuScenes one stepping the trained motion model;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -95,11 +106,12 @@ import torch
 
 import deft_tpu_torch
 from deft_tpu_torch import test as port_test
+from deft_tpu_torch import train_prediction as port_train_prediction
 from deft_tpu_torch.cli import parse_config
 from deft_tpu_torch.config import kitti_config, mot_config, nuscenes_config
 from deft_tpu_torch.csrc.build import BUILD_DIR, build_all
 from deft_tpu_torch.data.datasets import NUSCENES_INFO, get_dataset
-from deft_tpu_torch.data.image_io import imread, imwrite_png
+from deft_tpu_torch.data.image_io import imread
 from deft_tpu_torch.data.synthetic_kitti import make_sequence
 from deft_tpu_torch.data.synthetic_nuscenes import make_scene, make_tables
 import deft_tpu_torch.models.deft as deft_model
@@ -125,6 +137,8 @@ from deft_tpu_torch.tracking.basetrack import IdAllocator
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from recipe_lines import (RECIPES, recipe_lines, recipe_test_argv,  # noqa: E402
                           with_flags)
+from torch_port_layouts import (layout_kitti,  # noqa: E402
+                                layout_nuscenes_train, write_pngs)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -410,7 +424,7 @@ def backward_bound(h, w, c, x_bytes, g_bytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
 
 
-def backward_row(x, offsets, mask, rng, shape, regime):
+def backward_row(x, offsets, mask, rng, shape, regime, model="mot"):
     """T5 against its plain version on one layer's inputs and a N(0, 1)
     patch gradient in x's dtype (bf16 x: T4's bf16 patches), with its
     times, bound and library yardstick.  Tolerances: doffsets and dmask,
@@ -446,7 +460,7 @@ def backward_row(x, offsets, mask, rng, shape, regime):
         err = max(err, e)
     t_bytes, t_ops = backward_bound(h, w, c, x.element_size(),
                                     g.element_size())
-    return {"phase": "kernel", "kernel": "dcn_backward", "model": "mot",
+    return {"phase": "kernel", "kernel": "dcn_backward", "model": model,
             "H": h, "W": w, "C": c, "Cout": cout, "count": count,
             "regime": regime, "dtype": str(x.dtype).replace("torch.", ""),
             "radius": RADIUS,
@@ -517,16 +531,18 @@ def bitwise_checks(x, offsets, mask, weight, bias, shape):
 
 # kernels held and timed per (model, x dtype) at every layer shape of the
 # model; dcn_fused on a bf16 x only at the largest MOT shape; dcn_backward
-# alone on a bf16 x with offsets past the clamp
+# alone on a bf16 x with offsets past the clamp (MOT), and on a bf16 x at
+# the KITTI and nuScenes shapes of their train lines
 PHASE_KERNELS = {
     ("mot", torch.float32): tuple(KERNELS),
     ("mot", torch.bfloat16): ("dcn_sample", "dcn_sample_tap", "dcn_fused",
                               "dcn_sample_onehot", "dcn_backward"),
     ("kitti", torch.float32): ("dcn_sample", "dcn_sample_tap"),
     ("kitti", torch.bfloat16): ("dcn_sample", "dcn_sample_tap",
-                                "dcn_sample_onehot"),
+                                "dcn_sample_onehot", "dcn_backward"),
     ("nuscenes", torch.float32): ("dcn_sample",),
-    ("nuscenes", torch.bfloat16): ("dcn_sample", "dcn_sample_onehot"),
+    ("nuscenes", torch.bfloat16): ("dcn_sample", "dcn_sample_onehot",
+                                   "dcn_backward"),
 }
 
 
@@ -575,7 +591,7 @@ def kernel_phase():
                 continue
             if name == "dcn_backward":
                 row = backward_row(x, offsets, mask, rng,
-                                   (h, w, c, cout, count), regime)
+                                   (h, w, c, cout, count), regime, model)
                 emit(row)
                 rows.append(row)
                 continue
@@ -1731,13 +1747,8 @@ def public_stage_times(det, frames, dets, sync) -> dict:
 CLI_DIR = BUILD_DIR.parent / "cli"
 KITTI_CLI_FRAMES = 20          # tracking_val_half.json holds the last 10
 NUSCENES_CLI_SAMPLES = 3
-
-
-def write_pngs(paths_and_frames):
-    """``image_io.imwrite_png`` for each (path, frame)."""
-    for path, frame in paths_and_frames:
-        path.parent.mkdir(parents=True, exist_ok=True)
-        imwrite_png(str(path), frame)
+RECIPE_DIRS = {"mot": "mot17", "kitti": "kitti_tracking",
+               "nuscenes": "nuscenes"}
 
 
 def layout_mot(root: Path, n_frames: int, size) -> Path:
@@ -1764,31 +1775,6 @@ def layout_mot(root: Path, n_frames: int, size) -> Path:
            "categories": [{"id": 1, "name": "pedestrian"}]}
     (data / "annotations").mkdir(parents=True, exist_ok=True)
     (data / "annotations" / "val_half.json").write_text(json.dumps(ann))
-    return data
-
-
-def layout_kitti(root: Path, n_frames: int, size) -> Path:
-    """The numpy KITTI scene as ``kitti_tracking/``: PNG frames under
-    ``data_tracking_image_2/training/image_02/0000``, ``label_02/0000.txt``
-    and ``calib/0000.txt``, then ``tools/convert_kittitrack_to_coco.py``
-    (its ``tracking_val_half.json`` holds the last half)."""
-    import contextlib
-
-    from tools.convert_kittitrack_to_coco import convert
-
-    data = root / "kitti_tracking"
-    frames, rows = make_sequence(n_frames=n_frames, height=size[0],
-                                 width=size[1], seed=SEED + 4)
-    write_pngs((data / "data_tracking_image_2" / "training" / "image_02"
-                / "0000" / f"{f:06d}.png", img) for f, img in enumerate(frames))
-    (data / "label_02").mkdir(parents=True, exist_ok=True)
-    (data / "label_02" / "0000.txt").write_text("\n".join(rows) + "\n")
-    (data / "calib").mkdir(parents=True, exist_ok=True)
-    (data / "calib" / "0000.txt").write_text(
-        f"P2: 700.0 0.0 {size[1] / 2} 0.0 0.0 700.0 {size[0] / 2} 0.0 "
-        "0.0 0.0 1.0 0.0\n")
-    with contextlib.redirect_stdout(sys.stderr):
-        convert(str(data), "train")
     return data
 
 
@@ -1825,7 +1811,9 @@ def recipe_checkpoints(recipe: str, argv, data: Path, out: Path,
     the dataset's first frame, the heatmap raised (every class on KITTI),
     plausible 3-D heads on nuScenes; saved as a reference ``.pth`` under
     ``out``, and the seeded LSTM motion model's beside it where the line
-    has ``--load_model_traj``.  Returns the flags that name the files, the
+    has ``--load_model_traj`` (used by ``cli_phase`` alone: the recipes
+    phase's test lines load the motion model their
+    ``train_prediction.py`` line trained).  Returns the flags that name the files, the
     number of DCNv2 layers and {kernel: layers} of the bf16 hybrid
     (``bf16_hybrid_kernel``)."""
     cfg, _ = parse_config(argv)
@@ -1908,9 +1896,11 @@ def cli_run(argv):
             torch.cuda.max_memory_allocated(), resident)
 
 
-def check_cli_outputs(recipe, argv, metrics, data: Path):
+def check_cli_outputs(recipe, argv, metrics, data: Path, empty_ok=False):
     """Every image of the split has a results entry; the results files
-    exist and the evaluator scored them."""
+    exist (and hold results, unless ``empty_ok``: a network trained a few
+    steps from seeded weights may score no detection above the line's
+    threshold) and the evaluator scored them."""
     cfg, extras = parse_config(argv)
     ann = {"mot": "val_half.json", "kitti": "tracking_val_half.json",
            "nuscenes": "val.json"}[recipe]
@@ -1929,7 +1919,7 @@ def check_cli_outputs(recipe, argv, metrics, data: Path):
                else "results_kitti_tracking")
         files = list((Path(cfg.save_dir) / sub).glob("*.txt"))
         scored = metrics["overall"]["num_objects"] > 0
-    if not files or not all(f.stat().st_size > 0 for f in files):
+    if not files or not all(empty_ok or f.stat().st_size > 0 for f in files):
         raise AssertionError(f"{recipe}: results files {files}")
     if not scored:
         raise AssertionError(f"{recipe}: the evaluator scored no object")
@@ -1993,7 +1983,7 @@ def cli_phase():
     data_dir = CLI_DIR / "data"
     data = {"mot": layout_mot(data_dir, sizes["mot"][1], sizes["mot"][0]),
             "kitti": layout_kitti(data_dir, sizes["kitti"][1],
-                                  sizes["kitti"][0]),
+                                  sizes["kitti"][0], SEED + 4),
             "nuscenes": layout_nuscenes(data_dir, sizes["nuscenes"][1],
                                         sizes["nuscenes"][0])}
     emit({"phase": "cli_layout", "seconds": time.perf_counter() - t0,
@@ -2075,10 +2065,14 @@ def cli_phase():
     return path_launches
 
 
-# ---- the recipe's train.py line (slice 9) -----------------------------------
+# ---- the recipes' train.py lines (slices 9 and 10) ---------------------------
 
 TRAIN_DIR = BUILD_DIR.parent / "train"
 TRAIN_ITERS = 7                # one epoch: the 30 frames at batch 4
+RECIPE_TRAIN_ITERS = 4         # the KITTI and nuScenes train lines
+KITTI_TRAIN_FRAMES = 30
+NUSCENES_TRAIN_SAMPLES = 20
+KITTI_CLASSES = ("Car", "Pedestrian", "Cyclist")
 
 
 def write_train_annotations(data: Path) -> Path:
@@ -2139,6 +2133,66 @@ def train_run(argv):
             resident)
 
 
+def train_line(recipe: str, argv, per_step: int, steps: int, profile=None
+               ) -> dict:
+    """One run of a recipe's ``train.py`` line (``train_run``), under
+    ``--profile <profile>`` where given.  Asserts ``steps`` steps, per step
+    ``per_step`` launches of T4 (bf16) or T1 (float32) and as many of T5 on
+    an x of the line's dtype and no other kernel, no plain version on the
+    card, finite losses and ``model_last.pth``.  Returns the row: ms/step
+    and the loader's wait over the steps after the first, the first apart,
+    samples/s, launches, peak memory, the first and last losses, and under
+    ``--profile`` the device ms/step and busy share from the second step
+    on, over those steps' wall time."""
+    dtype = parse_config(argv)[0].compute_dtype or "float32"
+    batch = parse_config(argv)[0].batch_size
+    if profile is not None:
+        argv = with_flags(argv, profile=profile)
+    t_run = time.perf_counter()
+    stats, count, seen, peak, resident = train_run(argv)
+    t_run = time.perf_counter() - t_run
+    n = len(stats["step_seconds"])
+    sampler = "dcn_sample_onehot" if dtype == "bfloat16" else "dcn_sample"
+    want = {(sampler, dtype): per_step * n, ("dcn_backward", dtype):
+            per_step * n}
+    want_count = dict.fromkeys(KERNELS, 0)
+    want_count.update({k: v for (k, _), v in want.items()})
+    if n != steps or count != want_count or seen != want:
+        raise AssertionError(f"{recipe} train {dtype}: {n} steps, launches "
+                             f"{count} on x {seen}, expected {want}")
+    for when in ("first", "last"):
+        if not all(math.isfinite(v) for v in stats[when].values()):
+            raise AssertionError(f"{recipe} train {dtype}: {when} losses "
+                                 f"{stats[when]}")
+    if not Path(stats["checkpoint"]).is_file():
+        raise AssertionError(f"{recipe} train {dtype}: no "
+                             f"{stats['checkpoint']}")
+    warm = stats["step_seconds"][1:]
+    wait = stats["wait_seconds"][1:]
+    row = {"phase": "train", "recipe": recipe, "dtype": dtype,
+           "argv": argv, "steps": n, "batch": batch,
+           "ms_per_step": statistics.mean(warm) * 1e3,
+           "median_ms_per_step": statistics.median(warm) * 1e3,
+           "first_step_ms": stats["step_seconds"][0] * 1e3,
+           "first_step_wait_ms": stats["wait_seconds"][0] * 1e3,
+           "samples_per_s": batch / statistics.mean(warm),
+           "loader_wait_ms_per_step": statistics.mean(wait) * 1e3,
+           "launches": count,
+           "launches_per_step": {k: v // n for k, v in count.items() if v},
+           "x_dtype_launches": {f"{k} {d}": v for (k, d), v in seen.items()},
+           "peak_memory_bytes": peak, "resident_at_start_bytes": resident,
+           "main_seconds": t_run,
+           "loss_first": stats["first"], "loss_last": stats["last"]}
+    if profile is not None:
+        psteps = stats["profiled_steps"]
+        wall_ms = sum(stats["step_seconds"][-psteps:]) * 1e3
+        row.update({"profiled": True, "profiled_steps": psteps,
+                    "device_ms_per_step": stats["device_ms"] / psteps,
+                    "busy_share": stats["device_ms"] / wall_ms,
+                    "profile_trace": str(Path(profile) / "trace.json")})
+    return row
+
+
 def train_phase(data: Path) -> dict:
     """Slice 9's main path: the MOT recipe's ``train.py`` line of
     ``experiments/mot17_tracking.sh`` verbatim (``--compute_dtype
@@ -2149,15 +2203,13 @@ def train_phase(data: Path) -> dict:
     and ``--load_model`` naming seeded weights whose offset convs are
     randomized as the other phases do (``recipe_checkpoints``), on the
     ``cli_phase`` PNG frames with a ``train.json`` (``write_train_
-    annotations``); then once at float32, then the bf16 line once more
-    with ``--profile`` (device activity from the second step on, over
-    those steps' wall time).  Asserts per step 128
-    launches (16 layers x 4 samples x the image and the pre_image) of T4
-    (bf16) or T1 (float32) and 128 of T5, no other kernel, no plain
-    version on the card (``no_plain_on_card``), finite losses, and
-    ``model_last.pth``.  Then the recipe's ``test.py`` line verbatim (plus
-    ``--data_dir``) loads that ``model_last`` and is scored.  Returns the
-    launches of the unprofiled runs per dtype."""
+    annotations``): first at float32, then as the line stands, at bf16,
+    under ``--profile`` (device activity from the second step on, over
+    those steps' wall time).  Each run is held by ``train_line`` (per
+    step 128 launches, 16 layers x 4 samples x the image and the
+    pre_image, of T4 or T1 and of T5).  ``recipes_phase`` then runs the
+    recipe's other lines on the ``model_last`` the bf16 run wrote.
+    Returns the launches of the runs per dtype."""
     import shutil
 
     write_train_annotations(data)
@@ -2169,8 +2221,7 @@ def train_phase(data: Path) -> dict:
         "mot", recipe_test_argv("mot", data_dir=data.parent,
                                 exp_dir=TRAIN_DIR / "seed", gpus=0),
         data, TRAIN_DIR / "weights", LAYERS)
-    batch = parse_config(train_argv)[0].batch_size
-    per_step = n_dcn * batch * 2
+    per_step = n_dcn * parse_config(train_argv)[0].batch_size * 2
     cwd = os.getcwd()
     os.chdir(TRAIN_DIR)   # the test line names exp/tracking/mot17_train/...
     launched = {}
@@ -2178,73 +2229,177 @@ def train_phase(data: Path) -> dict:
         line = with_flags(train_argv, data_dir=data.parent, exp_dir="exp",
                           num_epochs=1, num_iters=TRAIN_ITERS,
                           load_model=files["load_model"])
-        for dtype in ("bfloat16", "float32"):
-            argv = with_flags(line, compute_dtype=dtype)
-            t_run = time.perf_counter()
-            stats, count, seen, peak, resident = train_run(argv)
-            t_run = time.perf_counter() - t_run
-            steps = len(stats["step_seconds"])
-            sampler = ("dcn_sample_onehot" if dtype == "bfloat16"
-                       else "dcn_sample")
-            want = {(sampler, dtype): per_step * steps,
-                    ("dcn_backward", dtype): per_step * steps}
-            want_count = dict.fromkeys(KERNELS, 0)
-            want_count.update({k: n for (k, _), n in want.items()})
-            if steps != TRAIN_ITERS or count != want_count or seen != want:
-                raise AssertionError(
-                    f"train {dtype}: {steps} steps, launches {count} on x "
-                    f"{seen}, expected {want}")
-            for when in ("first", "last"):
-                if not all(math.isfinite(v) for v in stats[when].values()):
-                    raise AssertionError(f"train {dtype}: {when} losses "
-                                         f"{stats[when]}")
-            if not Path(stats["checkpoint"]).is_file():
-                raise AssertionError(
-                    f"train {dtype}: no {stats['checkpoint']}")
-            warm = stats["step_seconds"][1:]
-            wait = stats["wait_seconds"][1:]
-            row = {"phase": "train", "recipe": "mot", "dtype": dtype,
-                   "argv": argv, "steps": steps, "batch": batch,
-                   "ms_per_step": statistics.mean(warm) * 1e3,
-                   "median_ms_per_step": statistics.median(warm) * 1e3,
-                   "first_step_ms": stats["step_seconds"][0] * 1e3,
-                   "first_step_wait_ms": stats["wait_seconds"][0] * 1e3,
-                   "samples_per_s": batch / statistics.mean(warm),
-                   "loader_wait_ms_per_step": statistics.mean(wait) * 1e3,
-                   "launches": count,
-                   "launches_per_step": {k: n // steps for k, n in
-                                         count.items() if n},
-                   "x_dtype_launches": {f"{k} {d}": n
-                                        for (k, d), n in seen.items()},
-                   "peak_memory_bytes": peak,
-                   "resident_at_start_bytes": resident,
-                   "main_seconds": t_run,
-                   "loss_first": stats["first"], "loss_last": stats["last"]}
-            if dtype == "bfloat16":
-                pstats = train_run(with_flags(
-                    argv, profile=TRAIN_DIR / "profile"))[0]
-                psteps = pstats["profiled_steps"]
-                wall_ms = sum(pstats["step_seconds"][-psteps:]) * 1e3
-                row.update({
-                    "profiled_steps": psteps,
-                    "profiled_ms_per_step": wall_ms / psteps,
-                    "device_ms_per_step": pstats["device_ms"] / psteps,
-                    "busy_share": pstats["device_ms"] / wall_ms,
-                    "profile_trace": str(TRAIN_DIR / "profile" /
-                                         "trace.json")})
+        for dtype in ("float32", "bfloat16"):
+            row = train_line("mot", with_flags(line, compute_dtype=dtype),
+                             per_step, TRAIN_ITERS,
+                             profile=(TRAIN_DIR / "profile" / "mot"
+                                      if dtype == "bfloat16" else None))
             emit(row)
-            launched[dtype] = count
-        test_argv = recipe_test_argv("mot", data_dir=data.parent)
-        metrics, tstats, count, _, _, _ = cli_run(test_argv)
-        overall = metrics["overall"]
-        if tstats["frames"] != FRAMES or not overall["num_objects"] > 0:
-            raise AssertionError(f"test line on model_last: {tstats}, "
-                                 f"{overall}")
-        emit({"phase": "train_then_test", "argv": test_argv,
-              "frames": tstats["frames"], "launches": count,
-              "ms_per_frame": tstats["seconds"] * 1e3 / tstats["frames"],
-              "metrics_overall": {k: v for k, v in overall.items()
-                                  if isinstance(v, (int, float))}})
+            launched[dtype] = row["launches"]
+    finally:
+        os.chdir(cwd)
+    return launched
+
+
+@contextlib.contextmanager
+def motion_models():
+    """Every ``LSTMMotion`` built meanwhile, in a list."""
+    built = []
+    init = motion_lstm.LSTMMotion.__init__
+
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    motion_lstm.LSTMMotion.__init__ = recorded
+    try:
+        yield built
+    finally:
+        motion_lstm.LSTMMotion.__init__ = init
+
+
+def prediction_line(recipe: str, argv) -> dict:
+    """The recipe's ``train_prediction.py`` line through ``python -m
+    deft_tpu_torch.train_prediction``'s ``main`` on the card.  Asserts
+    finite losses, one step per trajectory of the dataset but the ones too
+    short to train on, and a ``model_last.pth`` that loads strictly into a
+    ``DecoderRNN``.  Returns its row: ms/step (the sample's construction
+    included) and trajectories/s over the steps after the first."""
+    stats = {}
+    t_run = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        port_train_prediction.main(argv, stats)
+    t_run = time.perf_counter() - t_run
+    steps = len(stats["losses"])
+    if steps + stats["skipped"] != stats["trajectories"] or steps < 2:
+        raise AssertionError(f"{recipe} motion model: {steps} steps, "
+                             f"{stats['skipped']} skipped of "
+                             f"{stats['trajectories']}")
+    if not all(math.isfinite(v) for v in stats["losses"]):
+        raise AssertionError(f"{recipe} motion model: losses "
+                             f"{stats['losses']}")
+    blob = torch.load(stats["checkpoint"], map_location="cpu",
+                      weights_only=True)
+    dataset = parse_config(argv)[0].dataset
+    motion_lstm.DecoderRNN(dataset).load_state_dict(blob["state_dict"])
+    warm = stats["step_seconds"][1:]
+    return {"phase": "train_prediction", "recipe": recipe, "argv": argv,
+            "trajectories": stats["trajectories"], "steps": steps,
+            "skipped": stats["skipped"],
+            "ms_per_step": statistics.mean(warm) * 1e3,
+            "median_ms_per_step": statistics.median(warm) * 1e3,
+            "first_step_ms": stats["step_seconds"][0] * 1e3,
+            "trajectories_per_s": 1.0 / statistics.mean(warm),
+            "lengths": dict(sorted(Counter(stats["lengths"]).items())),
+            "loss_first": stats["losses"][0],
+            "loss_last": stats["losses"][-1],
+            "main_seconds": t_run, "checkpoint": stats["checkpoint"]}
+
+
+def recipes_phase(data_dir: Path) -> dict:
+    """Slice 10's main path: every line of the three recipes, in the order
+    of ``experiments/*.sh``, each on the files the line before it wrote,
+    from ``build/train/`` (its ``data/`` holds the train layouts, its
+    ``exp/`` what the lines write):
+
+    * the ``train.py`` line: MOT's ran in ``train_phase``; KITTI's and
+      nuScenes' run here verbatim plus ``--data_dir``, ``--exp_dir exp``,
+      ``--num_epochs 1 --num_iters 4``, ``--load_model`` of seeded weights
+      (``recipe_checkpoints`` on the ``cli_phase`` layouts) and
+      ``--profile``, at the line's bf16, on 30 PNG KITTI frames of
+      375x1242 with cars, pedestrians and cyclists (``layout_kitti``) and
+      20 samples x 6 cameras of 900x1600 (``layout_nuscenes_train``,
+      converted by the port's ``convert_nuscenes``); ``train_line`` holds
+      each (128 T4 and 128 T5 per step);
+    * the ``train_prediction.py`` line verbatim plus ``--num_epochs 1``
+      (``prediction_line``), reading ``data/<dataset>/...`` under the
+      working directory (MOT: the ``cli_phase`` frames' ``train.json``);
+    * the ``test.py`` line verbatim plus ``--data_dir`` of the
+      ``cli_phase`` layouts, on the ``model_last`` files the two lines
+      before it wrote: every frame has a results entry and the results
+      files are scored (they may hold no track: 4 steps from seeded
+      weights leave few detections above the threshold); on nuScenes every
+      ``LSTMMotion`` built holds the trained motion file's weights bit for
+      bit and the LSTM stepped tracks.
+
+    Returns {(recipe, script): launches}."""
+    cwd = os.getcwd()
+    os.chdir(TRAIN_DIR)
+    launched = {}
+    try:
+        t0 = time.perf_counter()
+        train_data = TRAIN_DIR / "data"
+        train_data.mkdir(exist_ok=True)
+        if not (train_data / "mot17").exists():
+            (train_data / "mot17").symlink_to(data_dir / "mot17")
+        layout_kitti(train_data, KITTI_TRAIN_FRAMES, KITTI_SIZE, SEED + 6,
+                     classes=KITTI_CLASSES)
+        layout_nuscenes_train(train_data, NUSCENES_TRAIN_SAMPLES, (900, 1600),
+                              SEED + 7)
+        emit({"phase": "recipes_layout",
+              "seconds": time.perf_counter() - t0,
+              "kitti_frames": KITTI_TRAIN_FRAMES,
+              "nuscenes_samples": NUSCENES_TRAIN_SAMPLES,
+              "cameras": CAMERAS})
+        layers = {"kitti": KITTI_LAYERS, "nuscenes": NUSCENES_LAYERS}
+        lines = recipe_lines()
+        for recipe in RECIPES:
+            argv = {script: a for (r, script, _), a in lines.items()
+                    if r == recipe}
+            if recipe != "mot":
+                files, n_dcn, _ = recipe_checkpoints(
+                    recipe, recipe_test_argv(
+                        recipe, data_dir=data_dir,
+                        exp_dir=TRAIN_DIR / "seed", gpus=0),
+                    data_dir / RECIPE_DIRS[recipe],
+                    TRAIN_DIR / "weights" / recipe, layers[recipe])
+                line = with_flags(argv["train.py"], data_dir=train_data,
+                                  exp_dir="exp", num_epochs=1,
+                                  num_iters=RECIPE_TRAIN_ITERS,
+                                  load_model=files["load_model"])
+                per_step = n_dcn * parse_config(line)[0].batch_size * 2
+                row = train_line(recipe, line, per_step, RECIPE_TRAIN_ITERS,
+                                 profile=TRAIN_DIR / "profile" / recipe)
+                emit(row)
+                launched[(recipe, "train.py")] = row["launches"]
+            row = prediction_line(recipe, with_flags(
+                argv["train_prediction.py"], num_epochs=1))
+            emit(row)
+            motion_file = row["checkpoint"]
+            test_argv = with_flags(argv["test.py"], data_dir=data_dir,
+                                   save_results=True)
+            motion_lstm.BATCHES = 0
+            with motion_models() as built:
+                metrics, tstats, count, _, _, _ = cli_run(test_argv)
+            items = check_cli_outputs(recipe, test_argv, metrics,
+                                      data_dir / RECIPE_DIRS[recipe],
+                                      empty_ok=True)
+            test_row = {"phase": "recipe_test", "recipe": recipe,
+                        "argv": test_argv, "frames": tstats["frames"],
+                        "items": items, "launches": count,
+                        "ms_per_frame": tstats["seconds"] * 1e3
+                                        / tstats["frames"],
+                        "metrics_overall": {
+                            k: v for k, v in metrics["overall"].items()
+                            if isinstance(v, (int, float))}}
+            if recipe == "nuscenes":
+                trained = torch.load(motion_file, map_location="cpu",
+                                     weights_only=True)["state_dict"]
+                if not built or motion_lstm.BATCHES == 0:
+                    raise AssertionError(
+                        f"nuScenes test line: {len(built)} motion models, "
+                        f"{motion_lstm.BATCHES} LSTM steps")
+                for motion in built:
+                    for k, v in motion.model.state_dict().items():
+                        if not torch.equal(v.cpu(), trained[k]):
+                            raise AssertionError(
+                                f"nuScenes test line: the motion model's {k} "
+                                f"is not {motion_file}'s")
+                test_row.update({"motion_models": len(built),
+                                 "lstm_batches": motion_lstm.BATCHES,
+                                 "motion_file": motion_file})
+            emit(test_row)
+            launched[(recipe, "test.py")] = count
     finally:
         os.chdir(cwd)
     return launched
@@ -2273,7 +2428,8 @@ def sums_entry(sums):
 
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
-                 public_launches, cli_launches, train_launches):
+                 public_launches, cli_launches, train_launches,
+                 recipe_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -2283,11 +2439,19 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     ``dcn_sample_onehot`` their sums on a bf16 x over the layers the bf16
     hybrid gives each, per model (the recipes' test lines).  The train
     phase adds its launches: ``dcn_sample`` (float32), ``dcn_sample_onehot``
-    (bf16) and ``dcn_backward`` (both, its only path)."""
+    (bf16) and ``dcn_backward`` (both, its only path); the recipes phase
+    those of the KITTI and nuScenes train lines (``dcn_sample_onehot`` and
+    ``dcn_backward``, bf16) and of the three test lines on the trained
+    files; ``dcn_backward`` its sums over the layers of a 384x1280 KITTI
+    frame and a 448x800 nuScenes camera on a bf16 x."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
             cli_hybrid.update(count)
+    recipe_train = Counter()
+    recipe_test = Counter()
+    for (_, script), count in recipe_launches.items():
+        (recipe_train if script == "train.py" else recipe_test).update(count)
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -2300,7 +2464,8 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                     slice_launches + nuscenes_launches + kitti_launches
                     + public_launches["Detector.run"]
                     + cli_hybrid["dcn_sample"]
-                    + train_launches["float32"]["dcn_sample"]),
+                    + train_launches["float32"]["dcn_sample"]
+                    + recipe_test["dcn_sample"]),
                 "dcn_sample_tap": (
                     "PipelinedRunner chunk 1 (MOT, MOT public detections, "
                     "KITTI), dcn_impl=pallas; deft_tpu_torch.test on the "
@@ -2313,13 +2478,18 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                     f"dcn_impl=hybrid): MOT and KITTI layers of > "
                     f"{HYBRID_CM_CHANNELS} channels, every nuScenes layer "
                     "(six cameras as one batch); deft_tpu_torch.train on "
-                    "the MOT train line (bf16, every layer of the batch)",
+                    "the MOT, KITTI and nuScenes train lines (bf16, every "
+                    "layer of the batch)",
                     cli_hybrid["dcn_sample_onehot"]
-                    + train_launches["bfloat16"]["dcn_sample_onehot"]),
+                    + train_launches["bfloat16"]["dcn_sample_onehot"]
+                    + recipe_train["dcn_sample_onehot"]
+                    + recipe_test["dcn_sample_onehot"]),
                 "dcn_backward": (
                     "deft_tpu_torch.train on the MOT recipe's train line, "
-                    "bf16 and float32 (train phase)",
-                    sum(n["dcn_backward"] for n in train_launches.values()))}
+                    "bf16 and float32 (train phase), and on the KITTI and "
+                    "nuScenes train lines, bf16 (recipes phase)",
+                    sum(n["dcn_backward"] for n in train_launches.values())
+                    + recipe_train["dcn_backward"])}
         path_name, count = path.get(name, (
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
@@ -2357,13 +2527,29 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
             entry["launches_by_path"][
                 f"deft_tpu_torch.train, mot train line, {dtype}, "
                 f"{TRAIN_ITERS} steps"] = train_launches[dtype][name]
+            entry["launches_by_path"].update({
+                f"deft_tpu_torch.test, {recipe} test line on the trained "
+                f"files, bf16": n[name]
+                for (recipe, script), n in recipe_launches.items()
+                if script == "test.py" and n[name]})
         if name == "dcn_backward":
             entry["launches_by_path"] = {
                 f"deft_tpu_torch.train, mot train line, {dtype}, "
                 f"{TRAIN_ITERS} steps": n["dcn_backward"]
                 for dtype, n in train_launches.items()}
+        if name in ("dcn_backward", "dcn_sample_onehot"):
+            entry["launches_by_path"].update({
+                f"deft_tpu_torch.train, {recipe} train line, bfloat16, "
+                f"{RECIPE_TRAIN_ITERS} steps": n[name]
+                for (recipe, script), n in recipe_launches.items()
+                if script == "train.py"})
+        if name == "dcn_backward":
             entry["bf16_per_frame"] = sums_entry(per_frame_sums(
                 [r for r in mine if r["model"] == "mot"], "bfloat16"))
+            entry["bf16_per_frame_kitti"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "kitti"], "bfloat16"))
+            entry["bf16_per_camera_nuscenes"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "nuscenes"], "bfloat16"))
             entry["design"] = ("one warp per (pixel, tap), lanes over "
                                "channels, float32 atomicAdd into dx, warp "
                                "shuffles for doffsets and dmask")
@@ -2459,6 +2645,8 @@ def main() -> int:
     lap("cli")
     train_launches = train_phase(CLI_DIR / "data" / "mot17")
     lap("train")
+    recipe_launches = recipes_phase(CLI_DIR / "data")
+    lap("recipes")
     emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
@@ -2466,7 +2654,7 @@ def main() -> int:
                       runner_rows["test.py"]["launches"]["dcn_sample_tap"],
                       nuscenes_launches, kitti_launches,
                       kitti_runner_launches, public_launches, cli_launches,
-                      train_launches))
+                      train_launches, recipe_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

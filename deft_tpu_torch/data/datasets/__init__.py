@@ -5,10 +5,11 @@ What the configuration and the trackers need: ``DatasetInfo``, the
 per-dataset info table, ``get_dataset_info``, the nuScenes tracking classes
 and the nuScenes submission's class families
 (``deft_tpu/data/datasets/nuscenes.py:22-27``).  ``get_dataset`` returns the
-class that ``test.py`` reads a split with: ``mot.MOTDataset``,
-``kitti_tracking.KITTITrackingDataset`` or ``nuscenes.NuScenesDataset``
-(each imported when asked for).  COCO, custom datasets and the motion
-model's trajectory dataset are not ported yet (ROADMAP.md, queue A.6).
+class that ``test.py`` and ``train.py`` read a split with:
+``mot.MOTDataset``, ``kitti_tracking.KITTITrackingDataset`` or
+``nuscenes.NuScenesDataset``, and for ``prediction_model`` the motion
+model's ``trajectory_dataset.TrajectoryDataset`` (each imported when asked
+for).  COCO and custom datasets are not ported yet (ROADMAP.md, queue A.6).
 """
 
 from __future__ import annotations
@@ -139,9 +140,8 @@ def get_dataset(name: str, prediction_model: bool = False):
     """Dataset class factory (``deft_tpu/data/datasets/__init__.py:
     124-138``; the reference's ``dataset_factory.py:16-34``)."""
     if prediction_model:
-        raise NotImplementedError(
-            "the trajectory dataset is not ported yet (ROADMAP.md, queue "
-            "A.6: data pipeline)")
+        from deft_tpu_torch.data.trajectory_dataset import TrajectoryDataset
+        return TrajectoryDataset
     if name == "mot":
         from deft_tpu_torch.data.datasets.mot import MOTDataset
         return MOTDataset

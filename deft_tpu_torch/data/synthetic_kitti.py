@@ -16,7 +16,7 @@ noise run the original's stripes.  Everything comes from ``seed``.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -24,13 +24,17 @@ FOCAL = 700.0      # px, as tools/make_synthetic_kitti.py's calibration
 
 
 def make_sequence(n_frames: int = 30, height: int = 375, width: int = 1242,
-                  n_objects: int = 20, seed: int = 0
+                  n_objects: int = 20, seed: int = 0,
+                  classes: Sequence[str] = ("Car",)
                   ) -> Tuple[List[np.ndarray], List[str]]:
     """(``n_frames`` [height, width, 3] uint8 BGR frames, ``label_02``
     rows).  Cars appear in the first two thirds of the sequence, live at
     least half of it, and start anywhere from just off the frame's edge to
-    its far side, so some enter, some leave and some cross."""
+    its far side, so some enter, some leave and some cross.  Each object's
+    ``label_02`` class is drawn from ``classes`` with a generator of its own
+    (``seed`` + 1), so the frames do not depend on ``classes``."""
     rng = np.random.default_rng(seed)
+    names = np.random.default_rng(seed + 1).choice(list(classes), n_objects)
     h, w = height, width
     cars = []
     for tid in range(n_objects):
@@ -40,7 +44,7 @@ def make_sequence(n_frames: int = 30, height: int = 375, width: int = 1242,
         speed = float(rng.uniform(1.5, 7.0)) * direction
         x0 = float(rng.uniform(-bw, w)) - speed * n_frames / 3
         cars.append({
-            "tid": tid, "depth": depth, "w": bw, "h": bh, "x0": x0,
+            "tid": tid, "cls": str(names[tid]), "depth": depth, "w": bw, "h": bh, "x0": x0,
             "y": float(rng.uniform(0.35, 0.9)) * (h - bh - 4), "vx": speed,
             "vy": float(rng.uniform(-0.15, 0.15)),
             "t0": int(rng.integers(0, max(1, 2 * n_frames // 3))),
@@ -70,7 +74,7 @@ def make_sequence(n_frames: int = 30, height: int = 375, width: int = 1242,
             img[iy1:iy2, max(cx - 1, 0):cx + 1] = np.minimum(
                 c["color"] + 60, 255)
             rows.append(
-                f"{f} {c['tid']} Car 0 0 -1.50 "
+                f"{f} {c['tid']} {c['cls']} 0 0 -1.50 "
                 f"{max(x1, 0):.2f} {max(y1, 0):.2f} "
                 f"{min(x2, w):.2f} {min(y2, h):.2f} "
                 f"1.5 1.7 4.0 {(x1 - w / 2) / 50:.2f} 1.6 "

@@ -5,14 +5,17 @@ boxes moving around it, rendered with numpy.
 ``tools/convert_nuscenes.py`` writes (``id``, ``frame_id``, ``sensor_id``,
 ``sample_token``, ``calib``, ``trans_matrix`` and the camera and ego-pose
 records), so ``track.py::track_nuscenes`` and ``nuscenes_submission`` take
-it as they take converted data.  ``make_tables`` gives the same scene's
-ground truth as the raw v1.0 tables ``tools/eval_nuscenes.py`` reads
+it as they take converted data.  ``make_tables`` gives the same scene as the
+raw v1.0 tables: the ground truth ``tools/eval_nuscenes.py`` reads
 (``scene``, ``sample``, ``sample_annotation``, ``instance``,
-``category``).  Each camera has a nuScenes-like intrinsic
-(f = 1266, principal point (816, 491) at 1600x900, scaled to the frame
-size) and its own yaw on the ego car; the ego pose advances every sample.
-Objects are solid rectangles at their projected 3-D extents.  Everything
-comes from ``seed``.
+``category``) and the rest that ``convert_nuscenes.convert`` reads to write
+a training file (``sample_data``, ``calibrated_sensor``, ``ego_pose``,
+``sensor``, ``attribute``), whose ``filename``s are the PNG names
+``frame_path`` gives ``make_scene``'s frames.  Each camera has a
+nuScenes-like intrinsic (f = 1266, principal point (816, 491) at 1600x900,
+scaled to the frame size) and its own yaw on the ego car; the ego pose
+advances every sample.  Objects are solid rectangles at their projected
+3-D extents.  Everything comes from ``seed``.
 """
 
 from __future__ import annotations
@@ -65,6 +68,31 @@ def _corners(center, size, yaw) -> np.ndarray:
     return (_rot_z(np.rad2deg(yaw)) @ np.vstack([x, y, z])).T + center
 
 
+def _intrinsic(height: int, width: int) -> np.ndarray:
+    sx, sy = width / 1600.0, height / 900.0
+    return np.array([[1266.0 * sx, 0, 816.0 * sx],
+                     [0, 1266.0 * sy, 491.0 * sy], [0, 0, 1]])
+
+
+def _camera_record(k: int):
+    """Camera ``k``'s (rotation (w, x, y, z), translation) on the ego car."""
+    r_cs = _rot_z(CAMERAS[k][1]) @ _R_FRONT
+    return (_quaternion(r_cs),
+            (_rot_z(CAMERAS[k][1]) @ [1.0, 0.0, 0.0]
+             + [0.5, 0.0, 1.5]).tolist())
+
+
+def _pose(t: int):
+    """The ego pose of sample ``t``: (rotation, translation)."""
+    return [1.0, 0.0, 0.0, 0.0], [EGO_STEP * t, 0.0, 0.0]
+
+
+def frame_path(k: int, t: int) -> str:
+    """Camera ``k``'s frame of sample ``t`` under the version directory, as
+    PNG (``make_tables``' ``sample_data`` filenames)."""
+    return f"samples/{CAMERAS[k][0]}/{t:04d}.png"
+
+
 def _objects(rng, n_objects: int):
     """The scene's objects at sample 0, drawn from ``rng``: (centres [N, 3],
     kinds [N], sizes [N, 3], yaws [N], velocities per sample [N, 3])."""
@@ -89,9 +117,7 @@ def make_scene(n_samples: int = 10, cameras: int = 6, height: int = 900,
     the rig, as (image info, [height, width, 3] uint8 BGR frame) pairs in
     sample-major order."""
     rng = np.random.RandomState(seed)
-    sx, sy = width / 1600.0, height / 900.0
-    intrinsic = np.array([[1266.0 * sx, 0, 816.0 * sx],
-                          [0, 1266.0 * sy, 491.0 * sy], [0, 0, 1]])
+    intrinsic = _intrinsic(height, width)
     calib = np.concatenate([intrinsic, np.zeros((3, 1))], axis=1)
     start, _, size, yaw, vel = _objects(rng, n_objects)
     colours = rng.randint(40, 256, (n_objects, 3))
@@ -100,14 +126,10 @@ def make_scene(n_samples: int = 10, cameras: int = 6, height: int = 900,
 
     out = []
     for t in range(n_samples):
-        pose_trans = [EGO_STEP * t, 0.0, 0.0]
-        pose_rot = [1.0, 0.0, 0.0, 0.0]
+        pose_rot, pose_trans = _pose(t)
         centers = start + vel * t
         for k in range(cameras):
-            r_cs = _rot_z(CAMERAS[k][1]) @ _R_FRONT
-            cs_rot = _quaternion(r_cs)
-            cs_trans = (_rot_z(CAMERAS[k][1]) @ [1.0, 0.0, 0.0]
-                        + [0.5, 0.0, 1.5]).tolist()
+            cs_rot, cs_trans = _camera_record(k)
             trans = _matrix(pose_trans, pose_rot) @ _matrix(cs_trans, cs_rot)
             to_cam = np.linalg.inv(trans)
             img = bases[k].copy()
@@ -135,17 +157,32 @@ def make_scene(n_samples: int = 10, cameras: int = 6, height: int = 900,
     return out
 
 
-def make_tables(n_samples: int = 10, n_objects: int = 36, seed: int = 0
+def make_tables(n_samples: int = 10, n_objects: int = 36, seed: int = 0,
+                cameras: int = 6, height: int = 900, width: int = 1600
                 ) -> Dict[str, list]:
-    """The ground truth of ``make_scene`` (same ``n_samples``,
-    ``n_objects`` and ``seed``) as v1.0 tables: one scene ``scene-0001``,
-    its samples ``sample_<t>`` chained by ``next``, one instance per object
-    and every object annotated at its global centre in every sample."""
+    """The scene of ``make_scene`` (same ``n_samples``, ``n_objects``,
+    ``seed``, ``cameras`` and frame size) as v1.0 tables: one scene
+    ``scene-0001``, its samples ``sample_<t>`` chained by ``next``, one
+    instance per object, every object annotated at its global centre in
+    every sample with a moving or a standing attribute by its speed, one
+    ego pose per sample, one sensor and calibrated sensor per camera, and a
+    key-frame ``sample_data`` per camera and sample.
+
+    ``sample_data`` lists one camera's key frames, then the next camera's:
+    the converter numbers images in this order, and the trajectory dataset
+    windows over consecutive image ids, so sample-major order would give
+    windows that span six cameras and share no track."""
     start, kind, size, yaw, vel = _objects(np.random.RandomState(seed),
                                            n_objects)
+    speed = np.linalg.norm(vel, axis=1)
+    moving = ("vehicle.moving", "pedestrian.moving", "vehicle.moving")
+    standing = ("vehicle.parked", "pedestrian.standing", "vehicle.parked")
+    attributes = sorted(set(moving + standing))
     tables = {
         "category": [{"token": f"category_{k}", "name": name}
                      for k, name in enumerate(_CATEGORIES)],
+        "attribute": [{"token": f"attribute_{name}", "name": name}
+                      for name in attributes],
         "instance": [{"token": f"instance_{i}",
                       "category_token": f"category_{kind[i]}",
                       "nbr_annotations": n_samples}
@@ -159,14 +196,39 @@ def make_tables(n_samples: int = 10, n_objects: int = 36, seed: int = 0
                     "next": f"sample_{t + 1}" if t < n_samples - 1 else ""}
                    for t in range(n_samples)],
         "sample_annotation": [],
+        "ego_pose": [],
+        "sensor": [{"token": f"sensor_{k}", "channel": CAMERAS[k][0],
+                    "modality": "camera"} for k in range(cameras)],
+        "calibrated_sensor": [],
+        "sample_data": [],
     }
+    intrinsic = _intrinsic(height, width).tolist()
+    for k in range(cameras):
+        rot, trans = _camera_record(k)
+        tables["calibrated_sensor"].append({
+            "token": f"calibrated_sensor_{k}", "sensor_token": f"sensor_{k}",
+            "translation": trans, "rotation": rot,
+            "camera_intrinsic": intrinsic})
     for t in range(n_samples):
+        rot, trans = _pose(t)
+        tables["ego_pose"].append({"token": f"ego_pose_{t}",
+                                   "translation": trans, "rotation": rot})
         centers = start + vel * t
         for i in range(n_objects):
+            attribute = (moving if speed[i] > 0.2 else standing)[kind[i]]
             tables["sample_annotation"].append({
                 "token": f"annotation_{t}_{i}", "sample_token": f"sample_{t}",
                 "instance_token": f"instance_{i}",
                 "translation": centers[i].tolist(),
                 "size": list(size[i]),
-                "rotation": _quaternion(_rot_z(np.rad2deg(yaw[i])))})
+                "rotation": _quaternion(_rot_z(np.rad2deg(yaw[i]))),
+                "attribute_tokens": [f"attribute_{attribute}"]})
+    for k in range(cameras):
+        for t in range(n_samples):
+            tables["sample_data"].append({
+                "token": f"sample_data_{k}_{t}", "sample_token": f"sample_{t}",
+                "ego_pose_token": f"ego_pose_{t}",
+                "calibrated_sensor_token": f"calibrated_sensor_{k}",
+                "filename": frame_path(k, t), "fileformat": "png",
+                "width": width, "height": height, "is_key_frame": True})
     return tables

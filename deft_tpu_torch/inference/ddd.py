@@ -1,12 +1,30 @@
 """Monocular 3-D geometry on the host, copied from
-``deft_tpu/inference/ddd.py``: unprojection of a 2-D centre and depth,
-alpha -> rot_y, the 8-bin rot head's alpha, and the greedy 2-D NMS the
+``deft_tpu/inference/ddd.py``: the corners of a 3-D box in the camera
+frame, unprojection of a 2-D centre and depth, alpha -> rot_y, the 8-bin rot head's alpha, and the greedy 2-D NMS the
 nuScenes detector applies per class.  Numpy, small-N work.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def compute_corners_3d(dim, rotation_y):
+    """dim: [h, w, l]; returns [8, 3] corners in camera frame."""
+    c, s = np.cos(rotation_y), np.sin(rotation_y)
+    r = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=np.float32)
+    h, w, l = dim
+    x = [l / 2, l / 2, -l / 2, -l / 2, l / 2, l / 2, -l / 2, -l / 2]
+    y = [0, 0, 0, 0, -h, -h, -h, -h]
+    z = [w / 2, -w / 2, -w / 2, w / 2, w / 2, -w / 2, -w / 2, w / 2]
+    return (r @ np.array([x, y, z], dtype=np.float32)).T
+
+
+def compute_box_3d(dim, location, rotation_y):
+    """[8, 3] corners of the box of ``dim`` [h, w, l] at the bottom centre
+    ``location``, yawed by ``rotation_y`` about the camera's y axis."""
+    corners = compute_corners_3d(dim, rotation_y)
+    return corners + np.asarray(location, np.float32).reshape(1, 3)
 
 
 def unproject_2d_to_3d(pt_2d, depth, p):

@@ -3,7 +3,7 @@
 
 The subset of ``pyquaternion.Quaternion`` and of the nuscenes-devkit ``Box``
 that the reference's camera -> global chain needs: axis-angle construction,
-composition, rotation of points, box translate / rotate.  Numpy, float64.
+composition, inverse, rotation of points, box translate / rotate.  Numpy, float64.
 """
 
 from __future__ import annotations
@@ -61,6 +61,10 @@ class Quaternion:
 
     def rotate(self, v: np.ndarray) -> np.ndarray:
         return self.rotation_matrix @ np.asarray(v, np.float64)
+
+    @property
+    def inverse(self) -> "Quaternion":
+        return Quaternion([self.w, -self.x, -self.y, -self.z])
 
     @property
     def angle(self) -> float:

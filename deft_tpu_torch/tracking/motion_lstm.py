@@ -8,6 +8,11 @@ Parameter names are the reference module's (``lstm.{weight,bias}_{ih,hh}_l0``
 of its one-layer ``nn.LSTM``, ``out1.*``, ``out2.*``), so a reference motion
 ``.pth`` loads strictly.
 
+``DecoderRNN.forward`` is the training rollout over a trajectory (the JAX
+module's ``__call__``), and ``init_decoder`` draws the JAX package's
+initialization (flax's ``OptimizedLSTMCell`` and ``nn.Dense``) from a seeded
+``torch.Generator``.
+
 ``LSTMMotion`` holds the module on its device and steps every track the
 tracker updated in a frame as one batch (``predict_batch``).  Rows are
 independent, so the batch is not padded to a power of two as the JAX package
@@ -61,6 +66,43 @@ class DecoderRNN(nn.Module):
                                  lstm.bias_hh_l0)
         x = self.out2(self.out1(h2))
         return h2, c2, x.reshape(feat.shape[0], self.future, 4)
+
+    def forward(self, traj: torch.Tensor) -> torch.Tensor:
+        """Training rollout: traj [B, T, F] from a zero state -> deltas
+        [B, future, 4] from the last step's h."""
+        _, (h, _) = self.lstm(traj.transpose(0, 1))
+        return self.out2(self.out1(h[-1])).reshape(traj.shape[0],
+                                                   self.future, 4)
+
+
+@torch.no_grad()
+def init_decoder(dataset: str, seed: int = 0) -> DecoderRNN:
+    """A ``DecoderRNN`` initialized as the JAX package initializes its
+    flax module, drawn from ``torch.Generator().manual_seed(seed)``: per
+    gate, a lecun-normal input kernel (truncated normal, variance 1 /
+    fan_in) and an orthogonal recurrent kernel, one zero bias (held in
+    ``bias_hh_l0``; ``bias_ih_l0`` is zero); lecun-normal kernels and zero
+    biases for ``out1`` and ``out2``."""
+    gen = torch.Generator().manual_seed(seed)
+    model = DecoderRNN(dataset)
+    lstm = model.lstm
+
+    def lecun(w: torch.Tensor):
+        std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=gen)
+
+    h = lstm.hidden_size
+    for g in range(4):
+        lecun(lstm.weight_ih_l0[g * h:(g + 1) * h])
+        nn.init.orthogonal_(lstm.weight_hh_l0[g * h:(g + 1) * h],
+                            generator=gen)
+    for layer in (model.out1, model.out2):
+        lecun(layer.weight)
+        layer.bias.zero_()
+    lstm.bias_ih_l0.zero_()
+    lstm.bias_hh_l0.zero_()
+    return model
 
 
 class LSTMMotion:

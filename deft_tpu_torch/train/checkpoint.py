@@ -14,6 +14,11 @@ where its parameter groups match (else fresh moments, with a message), the
 uncertainty weights and the step (where the file has none, ``epoch *
 steps_per_epoch``, as the JAX package derives it).  Orbax checkpoints of the
 JAX package stay refused (``checkpoint.resolve_pth``).
+
+``save_motion_checkpoint`` writes the LSTM motion model as the reference's
+own motion trainer does: ``{"epoch", "state_dict"}`` under its keys
+(``lstm.{weight,bias}_{ih,hh}_l0``, ``out1.*``, ``out2.*``), the file that
+``cfg.load_model_traj`` loads strictly.  The JAX package writes orbax there.
 """
 
 from __future__ import annotations
@@ -29,11 +34,7 @@ def save_checkpoint(path: str, trainer, epoch: int) -> str:
     """Write ``trainer``'s model, optimizer, uncertainty weights and step
     at ``epoch`` to ``path`` (``.pth`` appended if missing); returns the
     path."""
-    path = str(path)
-    if not path.endswith(".pth"):
-        path += ".pth"
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    blob = {
+    return _write({
         "epoch": int(epoch),
         "state_dict": {k: v.detach().cpu()
                        for k, v in trainer.model.state_dict().items()},
@@ -41,11 +42,27 @@ def save_checkpoint(path: str, trainer, epoch: int) -> str:
         "s_det": float(trainer.s_det.detach()),
         "s_id": float(trainer.s_id.detach()),
         "step": int(trainer.step),
-    }
+    }, path)
+
+
+def _write(blob: dict, path: str) -> str:
+    path = str(path)
+    if not path.endswith(".pth"):
+        path += ".pth"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_motion_checkpoint(path: str, model, epoch: int) -> str:
+    """Write the ``DecoderRNN`` ``model`` at ``epoch`` to ``path`` (``.pth``
+    appended if missing); returns the path."""
+    return _write({"epoch": int(epoch),
+                   "state_dict": {k: v.detach().cpu()
+                                  for k, v in model.state_dict().items()}},
+                  path)
 
 
 def load_train_state(path: str, trainer) -> int:

@@ -95,7 +95,11 @@ NEW_MODULES = ("deft_tpu_torch.cli", "deft_tpu_torch.test",
                "deft_tpu_torch.train.losses",
                "deft_tpu_torch.train.checkpoint",
                "deft_tpu_torch.data.loader", "deft_tpu_torch.ops.gaussian",
-               "deft_tpu_torch.ops.warp")
+               "deft_tpu_torch.ops.warp", "deft_tpu_torch.train_prediction",
+               "deft_tpu_torch.train.prediction",
+               "deft_tpu_torch.data.trajectory_dataset",
+               "deft_tpu_torch.data.synthetic_nuscenes",
+               "deft_tpu_torch.tools.convert_nuscenes")
 
 
 def test_new_modules_import_no_jax_cv2_or_pil():

@@ -69,7 +69,8 @@ _FORBIDDEN = re.compile(
 
 def test_sources_import_no_jax():
     files = sorted((ROOT / "deft_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "recipe_lines.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "recipe_lines.py",
+              ROOT / "tests" / "torch_port_layouts.py"]
     assert len(files) > 10
     for path in files:
         text = path.read_text()
