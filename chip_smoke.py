@@ -51,8 +51,10 @@ max_object=100, 50-slot rings) with seeded random weights:
   float32; slice 10 runs the recipe's other lines on the ``model_last.pth``
   written), every DCNv2 layer of every
   sample forward through ``dcn_sample_onehot`` (bf16) or ``dcn_sample``
-  (float32) and backward through ``dcn_backward`` (T5, also held against
-  its plain version at the 7 MOT shapes in the kernel phase);
+  (float32) and backward through ``dcn_backward`` (T5's tiled route, also
+  held against its plain version at the 7 MOT shapes in the kernel phase,
+  with its unclamped route ``dcn_backward_entry`` once at radius -1; the
+  train lines launch no unclamped one);
 * slice 10, every line of the three recipes in the order of
   ``experiments/*.sh``, each on what the line before it wrote
   (``recipes_phase``, in ``build/train/``): the KITTI and nuScenes
@@ -193,10 +195,16 @@ KERNELS = {
                           "deft_tpu/ops/pallas_dcn.py:463",
                           "LAUNCHES_ONEHOT"),                             # T4
     # T5 replaces no Pallas kernel: the jax.vjp of deform_conv_onehot that
-    # the JAX trainer takes (pallas_dcn.py:167, :733-747, :773-787)
+    # the JAX trainer takes (pallas_dcn.py:167, :733-747, :773-787).  Its
+    # tiled route (dcn_backward_tiled) runs every clamped layer; the
+    # unclamped route (dcn_backward) only dcn_impl="gather" or a radius
+    # whose window does not fit, no recipe line
     "dcn_backward": ("deft_tpu_torch/csrc/dcn_backward.cu",
                      "deft_tpu/ops/pallas_dcn.py:167",
                      "LAUNCHES_BACKWARD"),                                # T5
+    "dcn_backward_entry": ("deft_tpu_torch/csrc/dcn_backward.cu",
+                           "deft_tpu/ops/pallas_dcn.py:167",
+                           "LAUNCHES_BACKWARD_ENTRY"),                    # T5
 }
 CHUNK = 4                      # bench.py's runner
 PUBLIC_IOU_SHARE = 0.95         # public track boxes at IoU >= 0.5 with a
@@ -354,7 +362,7 @@ def yardstick_inputs(x, offsets, mask, radius):
     included."""
     h, w, c = x.shape
     dev = x.device
-    off = offsets.clamp(-radius, radius)
+    off = offsets.clamp(-radius, radius) if radius >= 0 else offsets
     k = torch.arange(3, dtype=torch.float32, device=dev) - 1.0
     ky, kx = torch.meshgrid(k, k, indexing="ij")
     yy = (torch.arange(h, dtype=torch.float32, device=dev)[:, None, None]
@@ -424,19 +432,29 @@ def backward_bound(h, w, c, x_bytes, g_bytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
 
 
-def backward_row(x, offsets, mask, rng, shape, regime, model="mot"):
+def backward_row(x, offsets, mask, rng, shape, regime, model="mot",
+                 radius=RADIUS):
     """T5 against its plain version on one layer's inputs and a N(0, 1)
     patch gradient in x's dtype (bf16 x: T4's bf16 patches), with its
-    times, bound and library yardstick.  Tolerances: doffsets and dmask,
-    float32 sums over C in another order, 1e-5 x max|plain|; dx, summed
-    with float32 atomics in an order that changes from call to call,
-    1e-5 x max|plain| in float32 and one bf16 step (2^-7 x max|plain|)
-    when cast to a bf16 x.  Whether two calls give the same bits is
-    recorded."""
+    times, bound and library yardstick.  The route is asserted from the
+    two counters: the tiled one (``dcn_backward``) for radius >= 0, the
+    unclamped one (``dcn_backward_entry``) for radius < 0; the row carries
+    the tiled route's plan.  Tolerances: doffsets and dmask, float32 sums
+    over C in another order, 1e-5 x max|plain|; dx, summed with float32
+    atomics in an order that changes from call to call, 1e-5 x max|plain|
+    in float32 and one bf16 step (2^-7 x max|plain|) when cast to a bf16
+    x.  Whether two calls give the same bits is recorded, per output."""
     h, w, c, cout, count = shape
     g = torch.from_numpy(rng.normal(0, 1, (h * w, 9 * c)).astype(np.float32)
                          ).to(x.device, x.dtype)
-    args = (g, x, offsets, mask, RADIUS)
+    args = (g, x, offsets, mask, radius)
+    plan = cuda_dcn.plan_backward(h, w, c, radius,
+                                  cuda_dcn._sm_count(x.device.index),
+                                  x.element_size())
+    name = "dcn_backward" if plan is not None else "dcn_backward_entry"
+    if (plan is None) != (radius < 0):
+        raise AssertionError(f"T5 at {(h, w, c)} radius {radius}: plan "
+                             f"{plan}")
 
     def kernel():
         return cuda_dcn.deform_sample_backward(*args)
@@ -444,8 +462,14 @@ def backward_row(x, offsets, mask, rng, shape, regime, model="mot"):
     def plain():
         return cuda_dcn.deform_sample_backward_reference(*args)
 
+    before = launches()
     got = kernel()
     torch.cuda.synchronize()
+    after = launches()
+    if {k: after[k] - before[k] for k in after} != {
+            k: int(k == name) for k in after}:
+        raise AssertionError(f"T5 at {(h, w, c)} radius {radius}: launches "
+                             f"{before} -> {after}, expected one {name}")
     again = kernel()
     ref = plain()
     err = 0.0
@@ -460,22 +484,30 @@ def backward_row(x, offsets, mask, rng, shape, regime, model="mot"):
         err = max(err, e)
     t_bytes, t_ops = backward_bound(h, w, c, x.element_size(),
                                     g.element_size())
-    return {"phase": "kernel", "kernel": "dcn_backward", "model": model,
+    same_bits = [torch.equal(a, b) for a, b in zip(got, again)]
+    return {"phase": "kernel", "kernel": name, "model": model,
             "H": h, "W": w, "C": c, "Cout": cout, "count": count,
             "regime": regime, "dtype": str(x.dtype).replace("torch.", ""),
-            "radius": RADIUS,
+            "radius": radius,
+            "route": "tiled" if plan is not None else "unclamped",
+            "plan": None if plan is None else {
+                "TH": plan.tile_h, "TW": plan.tile_w, "Cs": plan.slice_c,
+                "slices": plan.slices, "slice_run": plan.slice_run,
+                "blocks": plan.blocks,
+                "resident": plan.resident, "smem_bytes": plan.smem_bytes,
+                "workspace": plan.workspace},
             "kernel_ms": graph_times(kernel), "kernel_call_ms":
                 cuda_times(kernel),
             "plain_ms": graph_times(plain, per_graph=5),
             "library_ms": graph_times(grid_sample_backward_yardstick(
-                x, offsets, mask, g, RADIUS)),
+                x, offsets, mask, g, radius)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
             "bound_operations_ffma_ms": t_ops,
             "max_abs_err": err,
-            "same_bits_two_calls": all(torch.equal(a, b)
-                                       for a, b in zip(got, again))}
+            "same_bits_two_calls": all(same_bits),
+            "same_bits_two_calls_dx_doffsets_dmask": same_bits}
 
 
 def kernel_calls(name, x, offsets, mask, weight, bias):
@@ -532,7 +564,9 @@ def bitwise_checks(x, offsets, mask, weight, bias, shape):
 # kernels held and timed per (model, x dtype) at every layer shape of the
 # model; dcn_fused on a bf16 x only at the largest MOT shape; dcn_backward
 # alone on a bf16 x with offsets past the clamp (MOT), and on a bf16 x at
-# the KITTI and nuScenes shapes of their train lines
+# the KITTI and nuScenes shapes of their train lines; T5's unclamped route
+# (dcn_backward_entry, radius -1) only at the largest MOT shape, float32,
+# 'trained' offsets
 PHASE_KERNELS = {
     ("mot", torch.float32): tuple(KERNELS),
     ("mot", torch.bfloat16): ("dcn_sample", "dcn_sample_tap", "dcn_fused",
@@ -552,7 +586,8 @@ def kernel_phase():
     384x1280 KITTI frame: on a float32 x with 'trained' offsets and with
     offsets past the clamp, and on a bf16 x (the recipes' trunk) with
     'trained' offsets (T5, ``dcn_backward``, on the MOT shapes, also on a
-    bf16 x past the clamp; ``backward_row``); the bitwise checks at every
+    bf16 x past the clamp; ``backward_row``; its unclamped route once, at
+    radius -1 on the largest MOT layer); the bitwise checks at every
     float32 MOT case; times and bounds per call, T2 with the GEMM that
     reads its patches, and each kernel's plan."""
     rng = np.random.RandomState(SEED)
@@ -589,9 +624,14 @@ def kernel_phase():
                 continue
             if not f32 and regime == "uniform6" and name != "dcn_backward":
                 continue
-            if name == "dcn_backward":
+            if name == "dcn_backward_entry" and (
+                    (h, w, c, cout, count) != LAYERS[0]
+                    or regime != "trained"):
+                continue
+            if name in ("dcn_backward", "dcn_backward_entry"):
                 row = backward_row(x, offsets, mask, rng,
-                                   (h, w, c, cout, count), regime, model)
+                                   (h, w, c, cout, count), regime, model,
+                                   RADIUS if name == "dcn_backward" else -1)
                 emit(row)
                 rows.append(row)
                 continue
@@ -2442,8 +2482,11 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     (bf16) and ``dcn_backward`` (both, its only path); the recipes phase
     those of the KITTI and nuScenes train lines (``dcn_sample_onehot`` and
     ``dcn_backward``, bf16) and of the three test lines on the trained
-    files; ``dcn_backward`` its sums over the layers of a 384x1280 KITTI
-    frame and a 448x800 nuScenes camera on a bf16 x."""
+    files; ``dcn_backward`` (T5's tiled route) its sums over the layers of
+    a 384x1280 KITTI frame and a 448x800 nuScenes camera on a bf16 x, and
+    its plans; ``dcn_backward_entry`` (T5's unclamped route, on no path)
+    the numbers of its one call at radius -1 on the largest MOT layer and
+    the kernel phase's launches."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -2489,7 +2532,13 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                     "bf16 and float32 (train phase), and on the KITTI and "
                     "nuScenes train lines, bf16 (recipes phase)",
                     sum(n["dcn_backward"] for n in train_launches.values())
-                    + recipe_train["dcn_backward"])}
+                    + recipe_train["dcn_backward"]),
+                "dcn_backward_entry": (
+                    "none: T5's unclamped route, taken for dcn_impl=gather "
+                    "or where no window fits, which no recipe line does "
+                    "(0 launches on the train lines); launches through the "
+                    "wrapper in the kernel phase",
+                    kernel_launches["dcn_backward_entry"])}
         path_name, count = path.get(name, (
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
@@ -2550,11 +2599,33 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                 [r for r in mine if r["model"] == "kitti"], "bfloat16"))
             entry["bf16_per_camera_nuscenes"] = sums_entry(per_frame_sums(
                 [r for r in mine if r["model"] == "nuscenes"], "bfloat16"))
-            entry["design"] = ("one warp per (pixel, tap), lanes over "
-                               "channels, float32 atomicAdd into dx, warp "
-                               "shuffles for doffsets and dmask")
+            entry["design"] = ("tiled route: per pixel tile and run of "
+                               "channel slices an x window and a float32 dx "
+                               "window in shared memory, entries binned by "
+                               "window cell, bins owned by lane groups in "
+                               "four parity phases (plain shared adds), one "
+                               "float4 global add per window cell and 4 "
+                               "channels; plan_backward")
             entry["same_bits_two_calls"] = all(
                 r["same_bits_two_calls"] for r in mine)
+            entry["same_bits_doffsets_dmask_two_calls"] = all(
+                all(r["same_bits_two_calls_dx_doffsets_dmask"][1:])
+                for r in mine)
+            entry["plans"] = {f"{r['model']} {r['dtype']} "
+                              f"{r['H']}x{r['W']}x{r['C']}": r["plan"]
+                              for r in mine if r["regime"] == "trained"}
+        if name == "dcn_backward_entry":
+            (one,) = mine
+            entry.update({
+                "ms": one["kernel_ms"], "plain_ms": one["plain_ms"],
+                "library_ms": one["library_ms"], "bound_ms": one["bound_ms"],
+                "bound_by": one["bound_by"],
+                "per": f"one call at {one['H']}x{one['W']}x{one['C']}, "
+                       f"radius {one['radius']}, float32",
+                "design": ("one warp per (pixel, tap), lanes over channels, "
+                           "float32 atomicAdd into dx, warp shuffles for "
+                           "doffsets and dmask"),
+                "same_bits_two_calls": one["same_bits_two_calls"]})
         if name == "dcn_sample":
             entry["launches_by_path"].update({
                 f"Detector.run, MOT, {FRAMES} frames": slice_launches,

@@ -1,13 +1,16 @@
-// Pieces shared by dcn_sample.cu and dcn_fused.cu: dtype conversions, the
-// 16-byte channel packs and the bilinear corner arithmetic of one (pixel,
-// tap).  Both kernels take their sample positions from bilinear_corners, so
-// T1-T3 sample at the same positions with the same weights, bit for bit.
+// Pieces shared by the DCNv2 kernels: dtype conversions, the 16-byte
+// channel packs, the bilinear corner arithmetic of one (pixel, tap) and the
+// shared-memory limit of a kernel.  dcn_sample.cu and dcn_fused.cu take
+// their sample positions from bilinear_corners, so T1-T3 sample at the
+// same positions with the same weights, bit for bit.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace dcn {
 
@@ -98,6 +101,35 @@ __device__ __forceinline__ void bilinear_corners(
     idx[j] = inb ? (int)yc * W + (int)xc : 0;
     wt[j] = inb ? wgt[j] * m : 0.0f;
   }
+}
+
+constexpr int MAX_DEVICES = 64;   // devices whose kernel settings are cached
+
+// Once per kernel and device: let a block of Kernel take all the dynamic
+// shared memory the device offers, so that every launch, whatever its
+// plan, runs under the same setting (concurrent launches with different
+// plans do not race on it).
+template <auto Kernel>
+cudaError_t allow_all_shared_memory() {
+  static std::atomic<bool> ready[MAX_DEVICES];   // zero: false
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < MAX_DEVICES && ready[device].load(std::memory_order_acquire))
+    return cudaSuccess;
+  int limit = 0;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(Kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && device < MAX_DEVICES)
+    ready[device].store(true, std::memory_order_release);
+  return err;
 }
 
 }  // namespace dcn

@@ -54,8 +54,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "dcn_common.cuh"
 
 namespace {
@@ -68,7 +66,6 @@ constexpr int TPP = 3;                // threads per pixel of a tile
 constexpr int MAX_THREADS = 256 * TPP;
 constexpr int FILL_BATCH = 4;         // window packs in flight per thread
 constexpr int CHUNKS = (KK + TPP - 1) / TPP;  // chunks of 32 entries a warp
-constexpr int MAX_DEVICES = 64;       // devices whose attributes are cached
 
 // One (pixel, tap) entry, written by one lane for its warp.
 struct __align__(16) Entry {
@@ -303,34 +300,6 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// Once per kernel instance and device: let a block take all the dynamic
-// shared memory the device offers, so that every launch, whatever its
-// window, runs under the same setting (concurrent launches with different
-// windows do not race on it).
-template <typename T, int P, bool VEC>
-cudaError_t allow_all_shared_memory() {
-  static std::atomic<bool> ready[MAX_DEVICES];   // zero: false
-  auto kernel = dcn_onehot_kernel<T, P, VEC>;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < MAX_DEVICES && ready[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  int limit = 0;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && device < MAX_DEVICES)
-    ready[device].store(true, std::memory_order_release);
-  return err;
-}
-
 // smem: the block's dynamic shared memory, from the caller's plan; refused
 // where it is less than the window and the entry slots take.  A plan larger
 // than the device allows fails at the launch.
@@ -342,7 +311,8 @@ int launch(const void* x, const float* offsets, const float* mask, BF* out,
                         (tile_w + 2 * radius + 3) * P * sizeof(uint4);
   const size_t need = window + (size_t)TPP * tile_h * tile_w * sizeof(Entry);
   if ((size_t)smem < need) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_all_shared_memory<T, P, VEC>();
+  const cudaError_t err =
+      allow_all_shared_memory<dcn_onehot_kernel<T, P, VEC>>();
   if (err != cudaSuccess) return (int)err;
   const int tiles_w = (W + tile_w - 1) / tile_w;
   const int tiles_h = (H + tile_h - 1) / tile_h;

@@ -25,9 +25,10 @@ function (counter)            computes                         replaces (pallas_
 ``deform_conv_fused``         bf16-rounded sampling + float32  ``_dcn_kernel``
 (``LAUNCHES_FUSED``)          product + bias in one kernel     :224 (:270)
 ``deform_sample_backward``    the sampling's backward: dx,     no Pallas kernel: the
-(``LAUNCHES_BACKWARD``)       doffsets, dmask from the         ``jax.vjp`` of
-                              patches' gradient                ``deform_conv_onehot``
-                                                               :167 (:733-787)
+(``LAUNCHES_BACKWARD``: the   doffsets, dmask from the         ``jax.vjp`` of
+tiled route;                  patches' gradient                ``deform_conv_onehot``
+``LAUNCHES_BACKWARD_ENTRY``:                                   :167 (:733-787)
+the unclamped route)
 ============================  ===============================  ======================
 
 ``DeformSample`` is the autograd function around the samplers on the
@@ -63,7 +64,9 @@ plain version.  Each launch follows a plan computed here from the layer's
 shape and the card's SM count: ``plan_sample`` sizes T1's and T2's (entry
 tile, channel slice) grid, ``plan_onehot`` T4's (pixel tile, channel slice)
 grid and its shared-memory window, ``plan_fused`` picks T3's block tile and
-its split of the reduction, whose float32 workspace the wrapper allocates.
+its split of the reduction, whose float32 workspace the wrapper allocates,
+``plan_backward`` T5's (pixel tile, channel slice, slices a block takes)
+grid, its shared memory and whether its per-entry sums need a workspace.
 """
 
 from __future__ import annotations
@@ -91,6 +94,21 @@ SMEM_PER_BLOCK = 232448    # dynamic shared memory an H100 block may use
 FUSED_BK = 32              # reduction chunk of dcn_fused.cu
 FUSED_BM = {64: 64, 128: 64, 256: 32}   # dcn_fused.cu: BN -> BM of a block
 FUSED_PER_SM = 1           # blocks per SM plan_fused aims at
+BACKWARD_TILES = ((16, 32), (16, 16), (8, 32), (8, 16), (8, 8), (4, 8))
+BACKWARD_SLICES = (64, 32, 16, 8)                    # dcn_backward.cu's CS
+BACKWARD_BLOCKS_PER_SM = 2   # dcn_backward.cu's tiled launch bounds:
+                             # registers for 2 blocks of 512 threads
+BACKWARD_ENTRY_BYTES = 28  # shared memory per entry: weights, cell, order
+# plan_backward's costs, in a sampled element's time (see
+# backward_block_waves): fitted to the plan sweep of
+# tools/ablate_backward.py on an H100 (PERF.md)
+BACKWARD_TILE_COST = 13.9    # per entry and window cell, once a block
+BACKWARD_SLICE_FIXED = 37800.0   # per slice a block takes
+BACKWARD_WINDOW_COST = 0.66  # per window cell and channel of a slice
+BACKWARD_SLICE_COST = 4.0    # per entry of a slice, where partial sums
+                             # go through the workspace
+SMEM_PER_SM = 233472       # shared memory of an H100 SM
+SMEM_RESERVED = 1024       # of it held back per resident block
 
 # Kernel launches made through each wrapper (see the module docstring).
 LAUNCHES = 0
@@ -98,6 +116,7 @@ LAUNCHES_TAP = 0
 LAUNCHES_ONEHOT = 0
 LAUNCHES_FUSED = 0
 LAUNCHES_BACKWARD = 0
+LAUNCHES_BACKWARD_ENTRY = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -106,7 +125,8 @@ _SIGNATURES = {                       # library -> entry -> argtypes
                    for name in ("dcn_sample", "dcn_sample_tap")},
     "dcn_onehot": {"dcn_sample_onehot": [_P] * 4 + [_I] * 9 + [_P]},
     "dcn_fused": {"dcn_fused": [_P] * 7 + [_I] * 9 + [_P]},
-    "dcn_backward": {"dcn_backward": [_P] * 7 + [_I] * 6 + [_P]},
+    "dcn_backward": {"dcn_backward": [_P] * 7 + [_I] * 6 + [_P],
+                     "dcn_backward_tiled": [_P] * 8 + [_I] * 11 + [_P]},
 }
 _LIBRARY = {entry: library for library, entries in _SIGNATURES.items()
             for entry in entries}
@@ -262,6 +282,110 @@ def plan_fused(h: int, w: int, c: int, cout: int,
     splits = math.ceil(chunks / per_split)
     workspace = splits * h * w * cout if splits > 1 else 0
     return FusedPlan(bm, bn, tiles, chunks, splits, per_split, workspace)
+
+
+class BackwardPlan(NamedTuple):
+    """Grid of dcn_backward.cu's tiled route: ``tiles_h`` x ``tiles_w``
+    pixel tiles of ``tile_h`` x ``tile_w``, each block taking ``slice_run``
+    of the ``slices`` channel slices of ``slice_c`` in turn; each block
+    holds ``smem_bytes`` of shared memory (the x window, the float32 dx
+    window, the tile's rows of g, its entries and their bins;
+    ``backward_smem_bytes``).  Several slices add their per-entry sums in a
+    float32 workspace of ``workspace`` elements."""
+    tile_h: int
+    tile_w: int
+    slice_c: int
+    tiles_h: int
+    tiles_w: int
+    slices: int
+    slice_run: int
+    smem_bytes: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_h * self.tiles_w * -(-self.slices // self.slice_run)
+
+    @property
+    def resident(self) -> int:
+        """Blocks an SM holds at once: its registers hold
+        ``BACKWARD_BLOCKS_PER_SM``, its shared memory may hold fewer."""
+        return min(BACKWARD_BLOCKS_PER_SM,
+                   SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED))
+
+
+def backward_smem_bytes(cells: int, entries: int, slice_c: int,
+                        x_bytes: int, g_bytes: int) -> int:
+    """dcn_backward.cu's ``tiled_smem_bytes``: the x window [cells][Cs] in
+    x's dtype, the float32 dx window [cells][Cs], the tile's rows of g
+    [entries][Cs] in g's dtype, ``BACKWARD_ENTRY_BYTES`` per entry and two
+    int arrays over the cells (the bins), each part rounded up to 16
+    bytes."""
+    up = lambda n: -(-n // 16) * 16                       # noqa: E731
+    return (up(cells * slice_c * x_bytes) + cells * slice_c * 4
+            + entries * slice_c * g_bytes + entries * BACKWARD_ENTRY_BYTES
+            + up((cells + 1) * 4) + up(cells * 4))
+
+
+def _backward_plan(h, w, c, radius, tile_h, tile_w, slice_c, x_bytes=4,
+                   g_bytes=None, slice_run=1) -> BackwardPlan:
+    rows, cols = onehot_window(tile_h, tile_w, radius)
+    slices = math.ceil(c / slice_c)
+    smem = backward_smem_bytes(rows * cols, tile_h * tile_w * KK, slice_c,
+                               x_bytes, x_bytes if g_bytes is None
+                               else g_bytes)
+    return BackwardPlan(tile_h, tile_w, slice_c, math.ceil(h / tile_h),
+                        math.ceil(w / tile_w), slices, slice_run, smem,
+                        slices * h * w * KK * 3 if slices > 1 else 0)
+
+
+def backward_block_waves(plan: BackwardPlan, radius: int,
+                        sms: int = SMS) -> float:
+    """The time of ``plan``'s launch in a sampled element's time: waves of
+    blocks (ceil(blocks / (sms x resident))) times a block's time, which
+    is ``BACKWARD_TILE_COST`` per entry and window cell (the entries and
+    their bins, once a block) plus, per slice the block takes,
+    ``BACKWARD_SLICE_FIXED`` (its barriers and latencies), TH x TW x 9 x Cs
+    sampled elements, ``BACKWARD_WINDOW_COST`` per window cell and channel
+    and, with several slices, ``BACKWARD_SLICE_COST`` per entry.  Fitted to
+    297 swept plans at the 7 MOT layer shapes on an H100 (median error
+    10%), it picks each shape's fastest plan or one within 6% of it."""
+    rows, cols = onehot_window(plan.tile_h, plan.tile_w, radius)
+    entries = plan.tile_h * plan.tile_w * KK
+    per_slice = (BACKWARD_SLICE_FIXED + entries * plan.slice_c
+                 + BACKWARD_WINDOW_COST * rows * cols * plan.slice_c
+                 + (BACKWARD_SLICE_COST * entries if plan.slices > 1 else 0))
+    per_block = (BACKWARD_TILE_COST * (entries + rows * cols)
+                 + plan.slice_run * per_slice)
+    waves = math.ceil(plan.blocks / (sms * max(plan.resident, 1)))
+    return waves * per_block
+
+
+def plan_backward(h: int, w: int, c: int, radius: int, sms: int = SMS,
+                  x_bytes: int = 4, g_bytes: int = None):
+    """T5's tile and channel slice for an x of ``x_bytes`` and a g of
+    ``g_bytes`` per element (x's by default), or None where the tiled route
+    does not apply: a negative radius (no clamp, so no window bounds the
+    corners) or a radius whose smallest window does not fit a block's
+    shared memory.  Of the tiles of ``BACKWARD_TILES`` and the slices of
+    ``BACKWARD_SLICES`` no wider than C (rounded up to 8) whose shared
+    memory fits ``SMEM_PER_BLOCK``, each with 1, 2, 4 or 8 slices a block
+    (no more than C has), it keeps those that launch a block on every SM (if
+    any does) and of them the one ``backward_block_waves`` times fastest;
+    ties go to the wider slice, then the larger tile."""
+    if radius < 0:
+        return None
+    c8 = -(-c // 8) * 8
+    fits = [plan for cs in BACKWARD_SLICES if cs <= c8
+            for th, tw in BACKWARD_TILES
+            for run in (1, 2, 4, 8) if run == 1 or run <= -(-c // cs)
+            for plan in [_backward_plan(h, w, c, radius, th, tw, cs, x_bytes,
+                                        g_bytes, run)]
+            if plan.smem_bytes <= SMEM_PER_BLOCK]
+    if not fits:
+        return None
+    fits = [plan for plan in fits if plan.blocks >= sms] or fits
+    return min(fits, key=lambda plan: backward_block_waves(plan, radius, sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -659,16 +783,111 @@ def deform_sample_backward_reference(g: torch.Tensor, x: torch.Tensor,
             dmask.to(offsets.dtype))
 
 
+def deform_sample_backward_tiled_reference(g: torch.Tensor, x: torch.Tensor,
+                                           offsets: torch.Tensor,
+                                           mask: torch.Tensor, radius: int,
+                                           plan: BackwardPlan = None):
+    """T5's tiled route as ``dcn_backward_tiled`` runs it, in plain
+    PyTorch: per (tile, slice) of ``plan`` (``plan_backward``'s by
+    default), the zero-padded window of x of ``onehot_window``'s size, each
+    entry's window cell: its corner floor(pos) less the window's origin
+    (h0 - r - 1, w0 - r - 1; raises if the corner pair leaves the window),
+    the four corners read from the window, the entries' sums over the
+    slice's channels; then the entries' corner terms added into a float32
+    dx window at their cell and the cells one row and one column on (the
+    kernel adds each cell's bin of entries at once, in four phases), and
+    the window's in-image cells added into dx; the slices' partial sums
+    added in slice order.  Float32 arithmetic (the kernel adds in another
+    order); the outputs of ``deform_sample_backward_reference``."""
+    _check_inputs(x, offsets, mask)
+    _check_backward(g, x, offsets, mask)
+    _check_clamped(radius, "deform_sample_backward_tiled")
+    h, w, c = x.shape
+    dev = x.device
+    if plan is None:
+        plan = plan_backward(h, w, c, radius, x_bytes=x.element_size(),
+                             g_bytes=g.element_size())
+    th, tw, cs = plan.tile_h, plan.tile_w, plan.slice_c
+    rows, cols = onehot_window(th, tw, radius)
+    xf = x.float()
+    gf = g.float().reshape(h, w, KK, c)
+    ky, kx = _tap_grid(dev)
+    dx = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
+    partial = torch.zeros((plan.slices, h, w, KK, 3), dtype=torch.float32,
+                          device=dev)
+    for ty in range(plan.tiles_h):
+        for tx in range(plan.tiles_w):
+            h0, w0 = ty * th, tx * tw
+            r0, c0 = h0 - radius - 1, w0 - radius - 1
+            win = torch.zeros((rows, cols, c), dtype=torch.float32,
+                              device=dev)
+            gr = slice(max(r0, 0), min(r0 + rows, h))
+            gc = slice(max(c0, 0), min(c0 + cols, w))
+            inner = (slice(gr.start - r0, gr.stop - r0),
+                     slice(gc.start - c0, gc.stop - c0))
+            win[inner] = xf[gr, gc]
+            hh, ww = torch.meshgrid(
+                torch.arange(h0, min(h0 + th, h), device=dev),
+                torch.arange(w0, min(w0 + tw, w), device=dev), indexing="ij")
+            hh, ww = hh.reshape(-1), ww.reshape(-1)          # [n]
+            oy, ox = offsets[hh, ww, :, 0], offsets[hh, ww, :, 1]  # [n, 9]
+            pass_y = ((oy >= -radius) & (oy <= radius)).float()
+            pass_x = ((ox >= -radius) & (ox <= radius)).float()
+            yy = (hh[:, None] + ky).float() + oy.clamp(-radius, radius)
+            xx = (ww[:, None] + kx).float() + ox.clamp(-radius, radius)
+            y0, x0 = torch.floor(yy), torch.floor(xx)
+            ly, lx = yy - y0, xx - x0
+            hy, hx = 1.0 - ly, 1.0 - lx
+            wr, wc = y0.long() - r0, x0.long() - c0
+            if not (int(wr.min()) >= 0 and int(wr.max()) + 1 < rows
+                    and int(wc.min()) >= 0 and int(wc.max()) + 1 < cols):
+                raise RuntimeError("a corner pair leaves its tile's window")
+            m = mask[hh, ww]
+            e = lambda t: t[..., None]                        # noqa: E731
+            for s in range(plan.slices):
+                ch = slice(s * cs, min((s + 1) * cs, c))
+                part = win[..., ch]
+                a, b = part[wr, wc], part[wr, wc + 1]         # [n, 9, cs]
+                cc, d = part[wr + 1, wc], part[wr + 1, wc + 1]
+                gs = gf[hh, ww][..., ch]
+                top = e(hx) * a + e(lx) * b
+                bot = e(hx) * cc + e(lx) * d
+                sums = partial[s, hh, ww]                     # [n, 9, 3]
+                sums[..., 0] = (gs * (e(hy) * top + e(ly) * bot)).sum(-1)
+                sums[..., 1] = (gs * (bot - top)).sum(-1) * m * pass_y
+                sums[..., 2] = (gs * (e(hy) * (b - a) + e(ly) * (d - cc))
+                                ).sum(-1) * m * pass_x
+                partial[s, hh, ww] = sums
+                # corner (cy, cx) of an entry lies cy rows and cx columns
+                # after its cell
+                cell = (wr * cols + wc).reshape(-1)
+                dxw = torch.zeros((rows * cols, ch.stop - ch.start),
+                                  dtype=torch.float32, device=dev)
+                for cy, cx, wgt in ((0, 0, hy * hx), (0, 1, hy * lx),
+                                    (1, 0, ly * hx), (1, 1, ly * lx)):
+                    part_ = (gs * e(wgt * m)).reshape(-1, ch.stop - ch.start)
+                    dxw.index_add_(0, cell + cy * cols + cx, part_)
+                dx[gr, gc, ch] += dxw.reshape(rows, cols, -1)[inner]
+    sums = partial[0]
+    for s in range(1, plan.slices):
+        sums = sums + partial[s]
+    return (dx.to(x.dtype), sums[..., 1:].to(offsets.dtype).contiguous(),
+            sums[..., 0].to(offsets.dtype).contiguous())
+
+
 def deform_sample_backward(g: torch.Tensor, x: torch.Tensor,
                            offsets: torch.Tensor, mask: torch.Tensor,
                            radius: int):
-    """T5 (``dcn_backward``): the gradients (dx in x's dtype, doffsets
-    [H, W, 9, 2] float32, dmask [H, W, 9] float32) of the sampling of x at
-    ``offsets`` and ``mask`` given g = dL/dpatches ``[H*W, 9*C]`` (float32
-    or bfloat16).  dx is summed in float32 with atomics, so its bits may
-    change from call to call; the plain version is
-    ``deform_sample_backward_reference``."""
-    global LAUNCHES_BACKWARD
+    """T5: the gradients (dx in x's dtype, doffsets [H, W, 9, 2] float32,
+    dmask [H, W, 9] float32) of the sampling of x at ``offsets`` and
+    ``mask`` given g = dL/dpatches ``[H*W, 9*C]`` (float32 or bfloat16).
+    On the card it launches ``dcn_backward_tiled`` where the radius is >= 0
+    and ``plan_backward`` finds a plan (counted in ``LAUNCHES_BACKWARD``),
+    else the unclamped route ``dcn_backward`` (``LAUNCHES_BACKWARD_ENTRY``).
+    dx is summed in float32 with atomics on both routes, so its bits may
+    change from call to call; the tiled route's doffsets and dmask do not.
+    The plain version is ``deform_sample_backward_reference``."""
+    global LAUNCHES_BACKWARD, LAUNCHES_BACKWARD_ENTRY
     _check_inputs(x, offsets, mask)
     _check_backward(g, x, offsets, mask)
     if g.dtype not in _DTYPES:
@@ -676,15 +895,36 @@ def deform_sample_backward(g: torch.Tensor, x: torch.Tensor,
     if not _on_card("deform_sample_backward", x, offsets, mask, g):
         return deform_sample_backward_reference(g, x, offsets, mask, radius)
     h, w, c = x.shape
+    plan = plan_backward(h, w, c, radius, _sm_count(x.device.index),
+                         x.element_size(), g.element_size())
+    out = _backward_on_card(g, x, offsets, mask, radius, plan)
+    if plan is None:
+        LAUNCHES_BACKWARD_ENTRY += 1
+    else:
+        LAUNCHES_BACKWARD += 1
+    return out
+
+
+def _backward_on_card(g, x, offsets, mask, radius: int, plan):
+    """T5 on CUDA tensors: ``dcn_backward_tiled`` on ``plan`` (a
+    ``BackwardPlan``, radius >= 0), or ``dcn_backward`` for None."""
+    h, w, c = x.shape
     dx = torch.zeros((h, w, c), dtype=torch.float32, device=x.device)
     doffsets = torch.empty((h, w, KK, 2), dtype=torch.float32,
                            device=x.device)
     dmask = torch.empty((h, w, KK), dtype=torch.float32, device=x.device)
-    _launch("dcn_backward", dx, g.data_ptr(), x.data_ptr(),
-            offsets.data_ptr(), mask.data_ptr(), dx.data_ptr(),
-            doffsets.data_ptr(), dmask.data_ptr(), h, w, c, int(radius),
-            _DTYPES[x.dtype], _DTYPES[g.dtype])
-    LAUNCHES_BACKWARD += 1
+    args = (g.data_ptr(), x.data_ptr(), offsets.data_ptr(), mask.data_ptr(),
+            dx.data_ptr(), doffsets.data_ptr(), dmask.data_ptr())
+    if plan is None:
+        _launch("dcn_backward", dx, *args, h, w, c, int(radius),
+                _DTYPES[x.dtype], _DTYPES[g.dtype])
+    else:
+        ws = (torch.empty(plan.workspace, dtype=torch.float32,
+                          device=x.device) if plan.workspace else None)
+        _launch("dcn_backward_tiled", dx, *args,
+                None if ws is None else ws.data_ptr(), h, w, c, int(radius),
+                _DTYPES[x.dtype], _DTYPES[g.dtype], plan.tile_h, plan.tile_w,
+                plan.slice_c, plan.slice_run, plan.smem_bytes)
     return dx.to(x.dtype), doffsets, dmask
 
 

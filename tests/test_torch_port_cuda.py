@@ -332,30 +332,76 @@ def test_lstm_step_on_card_is_the_cell_update(cuda_device):
     assert torch.equal(h2, want[0]) and torch.equal(c2, want[1])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
-                                   (34, 60, 256)])
-@pytest.mark.parametrize("radius", [4, -1])
-def test_dcn_backward_matches_plain(cuda_device, h, w, c, dtype, radius):
-    """T5 against its plain version: doffsets and dmask (float32 sums over C
-    in another order) within 1e-5 x max|plain|; dx (float32 atomics, in an
-    order that changes from call to call) within 1e-5 x max|plain|, one
-    bf16 step (2^-7 x max|plain|) when cast to a bf16 x."""
-    x, offs, mask = _inputs(h, w, c, 9, cuda_device, dtype)
-    rng = np.random.RandomState(10)
-    g = torch.from_numpy(rng.randn(h * w, 9 * c).astype(np.float32)).to(
-        cuda_device, dtype)
-    before = cuda_dcn.LAUNCHES_BACKWARD
-    got = cuda_dcn.deform_sample_backward(g, x, offs, mask, radius)
-    torch.cuda.synchronize()
-    assert cuda_dcn.LAUNCHES_BACKWARD == before + 1
-    ref = cuda_dcn.deform_sample_backward_reference(g, x, offs, mask, radius)
+def _backward_close(got, ref, dtype):
+    """doffsets and dmask (float32 sums over C in another order) within
+    1e-5 x max|plain|; dx (float32 atomics, in an order that changes from
+    call to call) within 1e-5 x max|plain|, one bf16 step (2^-7 x
+    max|plain|) when cast to a bf16 x."""
     assert got[0].dtype == dtype
     assert got[1].dtype == got[2].dtype == torch.float32
     for i, (a, b) in enumerate(zip(got, ref)):
         rel = 2.0 ** -7 if (i == 0 and dtype == torch.bfloat16) else 1e-5
         err = (a.float() - b.float()).abs().max()
         assert err <= rel * b.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c", [(13, 19, 16), (11, 21, 40), (9, 7, 3),
+                                   (34, 60, 256), (136, 240, 64),
+                                   (17, 30, 512)])
+@pytest.mark.parametrize("radius", [4, -1])
+def test_dcn_backward_matches_plain(cuda_device, h, w, c, dtype, radius):
+    """T5 against its plain version (``_backward_close``), through the
+    route the counters name: the tiled one at radius 4, the unclamped one
+    at radius -1."""
+    x, offs, mask = _inputs(h, w, c, 9, cuda_device, dtype)
+    rng = np.random.RandomState(10)
+    g = torch.from_numpy(rng.randn(h * w, 9 * c).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = (cuda_dcn.LAUNCHES_BACKWARD, cuda_dcn.LAUNCHES_BACKWARD_ENTRY)
+    got = cuda_dcn.deform_sample_backward(g, x, offs, mask, radius)
+    torch.cuda.synchronize()
+    tiled = radius >= 0
+    assert (cuda_dcn.LAUNCHES_BACKWARD,
+            cuda_dcn.LAUNCHES_BACKWARD_ENTRY) == (before[0] + tiled,
+                                                  before[1] + (not tiled))
+    ref = cuda_dcn.deform_sample_backward_reference(g, x, offs, mask, radius)
+    _backward_close(got, ref, dtype)
+
+
+# every (tile, slice, slices a block) the planner can pick at 11x21x40,
+# radius 1, whose shared memory fits a block (plain Python: no card needed)
+TILED_PLANS = [
+    (dtype, tile, slice_c, run)
+    for dtype in (torch.float32, torch.bfloat16)
+    for tile in cuda_dcn.BACKWARD_TILES
+    for slice_c in cuda_dcn.BACKWARD_SLICES
+    for run in (1, 2, 4)
+    if run <= -(-40 // slice_c) and cuda_dcn._backward_plan(
+        11, 21, 40, 1, *tile, slice_c, 2 if dtype == torch.bfloat16 else 4
+    ).smem_bytes <= cuda_dcn.SMEM_PER_BLOCK]
+
+
+@pytest.mark.parametrize("dtype,tile,slice_c,run", TILED_PLANS)
+def test_dcn_backward_tiled_on_every_plan(cuda_device, dtype, tile, slice_c,
+                                          run):
+    """The tiled kernel under every plan of ``TILED_PLANS``, on a shape that
+    leaves ragged tiles and a ragged slice (C = 40), radius 1, offsets at
+    and past the clamp: the plain version's outputs."""
+    h, w, c, radius = 11, 21, 40, 1
+    x, offs, mask = _inputs(h, w, c, 13, cuda_device, dtype)
+    offs = offs.clamp(-1.5, 1.5)
+    offs[::3, ::2, :, 0] = 1.0
+    offs[1::3, ::2, :, 1] = -1.0
+    rng = np.random.RandomState(14)
+    g = torch.from_numpy(rng.randn(h * w, 9 * c).astype(np.float32)).to(
+        cuda_device, dtype)
+    plan = cuda_dcn._backward_plan(h, w, c, radius, *tile, slice_c,
+                                   x.element_size(), slice_run=run)
+    got = cuda_dcn._backward_on_card(g, x, offs, mask, radius, plan)
+    torch.cuda.synchronize()
+    ref = cuda_dcn.deform_sample_backward_reference(g, x, offs, mask, radius)
+    _backward_close(got, ref, dtype)
 
 
 def test_trainable_sampler_gradients_on_card(cuda_device):
