@@ -65,6 +65,20 @@ max_object=100, 50-slot rings) with seeded random weights:
   deft_tpu_torch.train_prediction`` (the LSTM motion model on the card),
   and each ``test.py`` line on the ``model_last`` files written, the
   nuScenes one stepping the trained motion model;
+* slice 12, data-parallel training (``ddp_phase``, after the train
+  phase): the MOT train line at bf16 for 3 steps with the in-process
+  loader, once through the one-process ``main`` and once as rank 0 of an
+  NCCL group of world size 1 (``train.run.train_rank``), the first step's
+  losses held together, rank 0's ``model_last.pth`` checked; and
+  test-time geometry (``geometry_phase``, last): 10 MOT frames through
+  ``Detector.run`` under ``flip_test`` at float32 (T1 on both samples of
+  every layer) and bf16 (T4), through the runner under ``flip_test`` at
+  chunk 4 (T2) and under ``--fix_short 544`` (544x1024), and 10 KITTI
+  frames under ``keep_res`` (384x1248) through ``Detector.run`` and the
+  runner at chunk 1 (host warp), and 3 nuScenes samples under
+  ``flip_test`` through ``run_multi`` (the trunk at 12 camera images); T1,
+  T2 and T4 also held at the keep_res KITTI and fix_short MOT layer shapes
+  in the kernel phase;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -577,13 +591,20 @@ PHASE_KERNELS = {
     ("nuscenes", torch.float32): ("dcn_sample",),
     ("nuscenes", torch.bfloat16): ("dcn_sample", "dcn_sample_onehot",
                                    "dcn_backward"),
+    # slice 12's layer sizes: keep_res KITTI and fix_short MOT frames
+    ("kitti_keep_res", torch.float32): ("dcn_sample", "dcn_sample_tap"),
+    ("kitti_keep_res", torch.bfloat16): ("dcn_sample_onehot",),
+    ("mot_fix_short", torch.float32): ("dcn_sample", "dcn_sample_tap"),
+    ("mot_fix_short", torch.bfloat16): ("dcn_sample_onehot",),
 }
 
 
 def kernel_phase():
     """Every kernel of ``PHASE_KERNELS`` against its plain version at the 7
     layer shapes of a 544x960 MOT frame, a 448x800 nuScenes camera and a
-    384x1280 KITTI frame: on a float32 x with 'trained' offsets and with
+    384x1280 KITTI frame, and (T1, T2 on a float32 x, T4 on a bf16 one,
+    'trained' offsets) of a 384x1248 keep_res KITTI frame and a 544x1024
+    fix_short MOT frame: on a float32 x with 'trained' offsets and with
     offsets past the clamp, and on a bf16 x (the recipes' trunk) with
     'trained' offsets (T5, ``dcn_backward``, on the MOT shapes, also on a
     bf16 x past the clamp; ``backward_row``; its unclamped route once, at
@@ -604,6 +625,11 @@ def kernel_phase():
              for shape in layers
              if model == "mot" or (regime, dtype) != ("uniform6",
                                                       torch.bfloat16)]
+    cases += [(shape, "trained", dtype, model)
+              for model, layers in (("kitti_keep_res", KITTI_KEEP_RES_LAYERS),
+                                    ("mot_fix_short", MOT_FIX_SHORT_LAYERS))
+              for dtype in (torch.float32, torch.bfloat16)
+              for shape in layers]
     for (h, w, c, cout, count), regime, dtype, model in cases:
         x = torch.from_numpy(rng.normal(0, 1, (h, w, c)).astype(np.float32)
                              ).to(dev, dtype)
@@ -2445,6 +2471,326 @@ def recipes_phase(data_dir: Path) -> dict:
     return launched
 
 
+# ---- test-time geometry and data-parallel training (slice 12) ---------------
+
+GEOMETRY_FRAMES = 10
+# the DCNv2 layers of a 375x1242 KITTI frame under keep_res (384x1248) and
+# of a 1080x1920 MOT frame under --fix_short 544 (544x1024)
+KITTI_KEEP_RES_LAYERS = [
+    (96, 312, 64, 64, 5),
+    (48, 156, 128, 64, 4),
+    (48, 156, 128, 128, 2),
+    (24, 78, 256, 128, 2),
+    (24, 78, 256, 256, 1),
+    (24, 78, 256, 64, 1),
+    (12, 39, 512, 256, 1),
+]
+MOT_FIX_SHORT_LAYERS = [
+    (136, 256, 64, 64, 5),
+    (68, 128, 128, 64, 4),
+    (68, 128, 128, 128, 2),
+    (34, 64, 256, 128, 2),
+    (34, 64, 256, 256, 1),
+    (34, 64, 256, 64, 1),
+    (17, 32, 512, 256, 1),
+]
+DDP_ITERS = 3
+LOSS_RTOL = 1e-4               # tests/test_torch_port_train_step.py's
+
+
+def counted_detections(det, tracked_class=None):
+    """``det.post_process`` wrapped so that each call's detections of the
+    tracked class (every class without one) are counted into the list
+    returned: the detections that reach the tracker (the runner cuts them
+    at its valid count, which the threshold already sets)."""
+    counts = []
+    post_process = det.post_process
+
+    def counted(dets, meta):
+        results = post_process(dets, meta)
+        counts.append(sum(tracked_class is None or d["class"] == tracked_class
+                          for d in results))
+        return results
+
+    det.post_process = counted
+    return counts
+
+
+def geometry_run(name, det, frames, per_frame, kernel, dtype, chunk=None,
+                 tracked_class=None, min_dets=1):
+    """One path of the geometry phase over ``frames``: ``Detector.run``
+    (``chunk`` None) or a ``PipelinedRunner`` at ``chunk``.  Asserts
+    ``per_frame`` launches of ``kernel`` on an x of ``dtype`` per
+    dispatched frame and no other kernel, finite tracks and at least
+    ``min_dets`` detections to the tracker per frame (median); returns its
+    row: wall ms/frame (the frames after the first; a runner's whole
+    sequence over its frames), device ms/frame over three more frames of
+    the same path under ``torch.profiler``, launches per frame and the
+    detections to the tracker."""
+    sync = torch.cuda.synchronize
+    counts = counted_detections(det, tracked_class)
+    if chunk is None:
+        run_ms = []
+        step = timed(det.run, sync, run_ms)
+        sync()
+        reset_launches()
+        with sampled_dtypes() as seen:
+            seq = [step(frame) for frame in frames]
+        count = launches()
+        ms = statistics.median(run_ms[1:])
+        dispatched = len(frames)
+
+        def again():
+            for frame in frames[1:4]:
+                det.run(frame)
+    else:
+        runner = PipelinedRunner(det, depth=3, chunk=chunk)
+        runner.track_sequence(frames[: 2 * chunk])          # warm up
+        runner.reset()
+        counts.clear()
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        with sampled_dtypes() as seen:
+            seq = runner.track_sequence(frames)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        count = launches()
+        dispatched = math.ceil(len(frames) / chunk) * chunk
+
+        def again():
+            runner.reset()
+            runner.track_sequence(frames[:3])
+    expected = dict.fromkeys(KERNELS, 0)
+    expected[kernel] = per_frame * dispatched
+    if count != expected or dict(seen) != {(kernel, dtype): expected[kernel]}:
+        raise AssertionError(f"geometry {name}: launches {count} on x "
+                             f"{dict(seen)}, expected {expected} on {dtype}")
+    n_dets = check_tracks(seq, 0)
+    tracked = counts[: len(frames)]
+    if statistics.median(tracked) < min_dets:
+        raise AssertionError(f"geometry {name}: detections to the tracker "
+                             f"{tracked}")
+    device_ms, _ = device_profile(again, 3)
+    cfg = det.cfg
+    return {"phase": "geometry", "path": name,
+            "config": f"{cfg.dataset} {cfg.input_h}x{cfg.input_w} "
+                      f"dcn_impl={cfg.dcn_impl} dtype={dtype} flip_test="
+                      f"{cfg.flip_test} keep_res={cfg.keep_res} fix_short="
+                      f"{cfg.fix_short}",
+            "frames": len(frames), "frame_size": list(frames[0].shape[:2]),
+            "frames_dispatched": dispatched,
+            "ms_per_frame": ms, "device_ms_per_frame": device_ms,
+            "launches": count, "launches_per_dispatched_frame":
+                {k: v / dispatched for k, v in count.items() if v},
+            "detections_to_tracker_per_frame": tracked,
+            "tracks_per_frame_median": statistics.median(n_dets)}
+
+
+GEOMETRY_SAMPLES = 3
+
+
+@torch.no_grad()
+def geometry_nuscenes_run():
+    """The nuScenes rig under ``flip_test`` through ``track_nuscenes`` ->
+    ``Detector.run_multi`` on 3 samples of six 900x1600 cameras: each
+    sample's trunk runs at batch 12 (the cameras and their mirrors), T1 on
+    every sample of every layer at float32, 192 per sample.  Asserts the
+    launches and finite tracks with global boxes; returns the phase's row
+    (ms per sample after the first, device ms per sample over one more
+    under ``torch.profiler``)."""
+    cfg = nuscenes_config(flip_test=True)
+    scene = make_scene(n_samples=GEOMETRY_SAMPLES, cameras=CAMERAS,
+                       height=900, width=1600, seed=SEED + 3)
+    det = Detector(cfg)
+    info0, frame0 = scene[0]
+    first, _ = det.pre_process(frame0, {"calib": info0["calib"]})
+    _, shapes = randomize_offsets(det.model,
+                                  first, torch.Generator().manual_seed(SEED))
+    n_dcn = sum(shapes.values())
+    raise_heatmap(det.model, first)
+    plausible_3d_heads(det.model)
+    run_ms = []
+    run_multi = det.run_multi
+    det.run_multi = timed(run_multi, torch.cuda.synchronize, run_ms)
+    torch.cuda.synchronize()
+    reset_launches()
+    with sampled_dtypes() as seen:
+        results = track_nuscenes(det, [(1, scene)])
+    count = launches()
+    per_sample = 2 * CAMERAS * n_dcn
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["dcn_sample"] = per_sample * GEOMETRY_SAMPLES
+    if (count != expected or dict(seen) != {("dcn_sample", "float32"):
+                                            expected["dcn_sample"]}):
+        raise AssertionError(f"geometry nuScenes flip: launches {count} on x "
+                             f"{dict(seen)}, expected {expected}")
+    items = [item for v in results.values() for item in v]
+    for item in items:
+        box = item["translation"] + item["size"] + item["rotation"]
+        if not np.isfinite(box).all():
+            raise AssertionError(f"non-finite track box {item}")
+    if not items:
+        raise AssertionError("geometry nuScenes flip: no tracks")
+    frames = [frame for _, frame in scene[:CAMERAS]]
+    metas = [{"calib": info["calib"]} for info, _ in scene[:CAMERAS]]
+    infos = [info for info, _ in scene[:CAMERAS]]
+    device_ms, _ = device_profile(
+        lambda: run_multi(frames, metas, infos), 1)
+    return {"phase": "geometry", "path": "Detector.run_multi nuScenes "
+                                          "flip_test float32",
+            "config": f"nuscenes {cfg.input_h}x{cfg.input_w} dcn_impl="
+                      f"{cfg.dcn_impl} dtype=float32 flip_test=True",
+            "samples": GEOMETRY_SAMPLES, "cameras": CAMERAS,
+            "frame_size": list(frame0.shape[:2]),
+            "ms_per_sample": statistics.median(run_ms[1:]),
+            "device_ms_per_sample": device_ms, "launches": count,
+            "launches_per_sample": {k: v / GEOMETRY_SAMPLES
+                                    for k, v in count.items() if v},
+            "tracks_per_camera_frame": len(items) / len(scene)}
+
+
+@torch.no_grad()
+def geometry_phase():
+    """Slice 12's paths at full width on the card (PERF.md §4): the MOT
+    slice on 10 synthetic 1080x1920 frames through ``Detector.run`` under
+    ``flip_test`` (``dcn_impl="hybrid"``: float32, T1 on each of the 2
+    samples of every layer, 32 per frame; bf16, T4 on all 32, as the JAX
+    hybrid sends a batch to ``deform_conv_onehot``), through the runner
+    under ``flip_test`` (``dcn_impl="pallas"``, chunk 4: T2, 32 per
+    dispatched frame), and under ``--fix_short 544`` (544x1024, T1 16 per
+    frame); KITTI on 10 numpy 375x1242 frames under ``keep_res``
+    (384x1248) through ``Detector.run`` (T1, 16) and the runner at chunk 1
+    (host warp, T2, 16).  Each path is held by ``geometry_run``.  Then the
+    nuScenes rig under ``flip_test`` (``geometry_nuscenes_run``: T1, 192
+    per sample).  Returns the rows and the launches per kernel of all the
+    paths."""
+    gen_frames = list(synthetic_frames(GEOMETRY_FRAMES))
+    total = Counter()
+    rows = []
+    cfg = mot_config(flip_test=True)
+    det, n_dcn, _ = prepared_detector(cfg, gen_frames, "cuda", LAYERS)
+    weights = det.model.state_dict()
+    rows.append(geometry_run("Detector.run MOT flip_test float32", det,
+                             gen_frames, 2 * n_dcn, "dcn_sample",
+                             "float32"))
+    del det
+    det = Detector(cfg.replace(compute_dtype="bfloat16"), weights)
+    rows.append(geometry_run("Detector.run MOT flip_test bf16", det,
+                             gen_frames, 2 * n_dcn, "dcn_sample_onehot",
+                             "bfloat16"))
+    del det
+    det = Detector(cfg.replace(dcn_impl="pallas"), weights)
+    rows.append(geometry_run(f"PipelinedRunner chunk {CHUNK} MOT flip_test",
+                             det, gen_frames, 2 * n_dcn, "dcn_sample_tap",
+                             "float32", chunk=CHUNK))
+    del det
+    det, n_dcn, _ = prepared_detector(mot_config(fix_short=544), gen_frames,
+                                      "cuda", MOT_FIX_SHORT_LAYERS)
+    rows.append(geometry_run("Detector.run MOT fix_short 544", det,
+                             gen_frames, n_dcn, "dcn_sample", "float32"))
+    del det, gen_frames
+    kitti_frames, _ = make_sequence(n_frames=GEOMETRY_FRAMES,
+                                    height=KITTI_SIZE[0],
+                                    width=KITTI_SIZE[1], seed=SEED + 4)
+    cfg = kitti_config(keep_res=True)
+    det, n_dcn, _ = prepared_detector(cfg, kitti_frames, "cuda",
+                                      KITTI_KEEP_RES_LAYERS,
+                                      raise_class_heatmaps)
+    weights = det.model.state_dict()
+    rows.append(geometry_run("Detector.run KITTI keep_res", det,
+                             kitti_frames, n_dcn, "dcn_sample", "float32",
+                             tracked_class=CAR))
+    del det
+    det = Detector(cfg.replace(dcn_impl="pallas"), weights)
+    rows.append(geometry_run("PipelinedRunner chunk 1 KITTI keep_res", det,
+                             kitti_frames, n_dcn, "dcn_sample_tap",
+                             "float32", chunk=1, tracked_class=CAR))
+    del det, kitti_frames
+    rows.append(geometry_nuscenes_run())
+    for row in rows:
+        emit(row)
+        total.update(row["launches"])
+    return rows, total
+
+
+def ddp_phase(data: Path) -> dict:
+    """Slice 12's training path: the MOT recipe's ``train.py`` line
+    (bf16, batch 4 at 544x960, ``--num_workers 0`` so that the batches are
+    a function of the seed, ``--num_iters 3``, the train phase's seeded
+    ``--load_model``) once through ``deft_tpu_torch.train``'s one-process
+    ``main`` and once through ``train_rank(0, 1, "nccl", ...)``, rank 0 of
+    an NCCL group of world size 1 on the card.  Asserts the group's
+    backend, the first step's losses within 1e-4 relative of the
+    one-process line's, 128 T4 and 128 T5 launches per step, and that
+    rank 0 wrote ``model_last.pth``.  Returns the launches of the NCCL
+    run."""
+    (train_argv,) = [a for (r, script, _), a in recipe_lines().items()
+                     if r == "mot" and script == "train.py"]
+    weights = TRAIN_DIR / "weights" / "model.pth"
+    n_dcn = sum(layer[4] for layer in LAYERS)
+    per_step = n_dcn * parse_config(train_argv)[0].batch_size * 2
+    cwd = os.getcwd()
+    os.chdir(TRAIN_DIR)
+    rows = {}
+    try:
+        for run in ("one process", "nccl world 1"):
+            line = with_flags(train_argv, data_dir=data.parent,
+                              exp_dir=f"exp_ddp/{run.split()[0]}",
+                              num_epochs=1, num_iters=DDP_ITERS,
+                              num_workers=0, load_model=weights)
+            if run == "one process":
+                rows[run] = train_line("mot", line, per_step, DDP_ITERS)
+                continue
+            gc.collect()
+            torch.cuda.empty_cache()
+            stats = {}
+            reset_launches()
+            t_run = time.perf_counter()
+            with no_plain_on_card(), sampled_dtypes() as seen, \
+                    contextlib.redirect_stdout(sys.stderr):
+                port_train.train_rank(0, 1, "nccl", line, stats)
+            t_run = time.perf_counter() - t_run
+            count = launches()
+            n = len(stats["step_seconds"])
+            want = {("dcn_sample_onehot", "bfloat16"): per_step * n,
+                    ("dcn_backward", "bfloat16"): per_step * n}
+            if (n != DDP_ITERS or dict(seen) != want
+                    or stats["backend"] != "nccl" or stats["world"] != 1):
+                raise AssertionError(
+                    f"ddp: {n} steps on {stats.get('backend')} world "
+                    f"{stats.get('world')}, launches {dict(seen)}")
+            if not Path(stats["checkpoint"]).is_file():
+                raise AssertionError(f"ddp: rank 0 wrote no "
+                                     f"{stats['checkpoint']}")
+            rows[run] = {"phase": "train", "recipe": "mot",
+                         "dtype": "bfloat16", "argv": line, "steps": n,
+                         "ms_per_step": statistics.mean(
+                             stats["step_seconds"][1:]) * 1e3,
+                         "first_step_ms": stats["step_seconds"][0] * 1e3,
+                         "launches": count, "main_seconds": t_run,
+                         "loss_first": stats["first"],
+                         "loss_last": stats["last"]}
+    finally:
+        os.chdir(cwd)
+    one, nccl = rows["one process"], rows["nccl world 1"]
+    rel = {k: abs(nccl["loss_first"][k] - v) / max(abs(v), 1.0)
+           for k, v in one["loss_first"].items()}
+    if max(rel.values()) > LOSS_RTOL:
+        raise AssertionError(f"ddp: first-step losses {nccl['loss_first']} "
+                             f"against one process {one['loss_first']}")
+    emit({"phase": "ddp", "backend": "nccl", "world": 1,
+          "argv": nccl["argv"], "steps": DDP_ITERS,
+          "ms_per_step": nccl["ms_per_step"],
+          "one_process_ms_per_step": one["ms_per_step"],
+          "first_step_ms": nccl["first_step_ms"],
+          "one_process_first_step_ms": one["first_step_ms"],
+          "first_step_loss_max_rel_diff": max(rel.values()),
+          "loss_first": nccl["loss_first"], "launches": nccl["launches"],
+          "checkpoint_written_by_rank_0": True})
+    return nccl["launches"]
+
+
 def per_frame_sums(rows, dtype="float32"):
     """Per-frame sums over the layers of ``rows`` ('trained' offsets, x in
     ``dtype``)."""
@@ -2469,7 +2815,7 @@ def sums_entry(sums):
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
                  public_launches, cli_launches, train_launches,
-                 recipe_launches):
+                 recipe_launches, geometry_rows, ddp_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -2486,7 +2832,11 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     a 384x1280 KITTI frame and a 448x800 nuScenes camera on a bf16 x, and
     its plans; ``dcn_backward_entry`` (T5's unclamped route, on no path)
     the numbers of its one call at radius -1 on the largest MOT layer and
-    the kernel phase's launches."""
+    the kernel phase's launches.  The geometry phase's paths add their
+    launches to T1, T2 and T4 (``launches_by_path``), and those kernels
+    their sums over the layers of a keep_res KITTI frame and a fix_short
+    MOT frame (T1 and T2 on a float32 x, T4 on a bf16 one); the ddp
+    phase's NCCL run adds its T4 and T5 launches."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -2543,6 +2893,18 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
             "none: nothing in the JAX package calls the TPU kernel; "
             "launches through the wrapper in the kernel phase",
             kernel_launches[name]))
+        geometry_paths = {
+            f"{row['path']}, " + (f"{row['samples']} samples"
+                                  if "samples" in row
+                                  else f"{row['frames']} frames"):
+                row["launches"][name]
+            for row in geometry_rows if row["launches"][name]}
+        if name in ("dcn_sample", "dcn_sample_tap", "dcn_sample_onehot"):
+            count += sum(geometry_paths.values())
+            path_name += "; the geometry phase (flip_test, keep_res, fix_short)"
+        if name in ("dcn_sample_onehot", "dcn_backward"):
+            count += ddp_launches[name]
+            path_name += "; the ddp phase (train_rank, NCCL, world 1)"
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": count,
@@ -2657,6 +3019,19 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
         if name == "dcn_sample_onehot":
             entry["design"] = ("bf16 input window in shared memory per "
                                "(pixel tile, channel slice), plan_onehot")
+        if name in ("dcn_sample", "dcn_sample_tap", "dcn_sample_onehot"):
+            dtype = "bfloat16" if name == "dcn_sample_onehot" else "float32"
+            entry["keep_res_kitti_per_frame"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "kitti_keep_res"], dtype))
+            entry["fix_short_mot_per_frame"] = sums_entry(per_frame_sums(
+                [r for r in mine if r["model"] == "mot_fix_short"], dtype))
+            entry["launches_by_path"].update(
+                {f"geometry phase, {path}": n
+                 for path, n in geometry_paths.items()})
+        if name in ("dcn_sample_onehot", "dcn_backward"):
+            entry["launches_by_path"][
+                f"ddp phase, train_rank nccl world 1, mot train line bf16, "
+                f"{DDP_ITERS} steps"] = ddp_launches[name]
         if name == "dcn_sample_tap":
             entry["store"] = "streaming (st.global.cs)"
             entry["with_gemm_ms"] = sum(
@@ -2716,8 +3091,12 @@ def main() -> int:
     lap("cli")
     train_launches = train_phase(CLI_DIR / "data" / "mot17")
     lap("train")
+    ddp_launches = ddp_phase(CLI_DIR / "data" / "mot17")
+    lap("ddp")
     recipe_launches = recipes_phase(CLI_DIR / "data")
     lap("recipes")
+    geometry_rows, _ = geometry_phase()
+    lap("geometry")
     emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
@@ -2725,7 +3104,8 @@ def main() -> int:
                       runner_rows["test.py"]["launches"]["dcn_sample_tap"],
                       nuscenes_launches, kitti_launches,
                       kitti_runner_launches, public_launches, cli_launches,
-                      train_launches, recipe_launches))
+                      train_launches, recipe_launches, geometry_rows,
+                      ddp_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,8 +9,10 @@ options that are not ``Config`` fields (``--gpus``, ``--num_workers``,
 sets ``save_dir = exp_dir/task/exp_id`` and wires in the dataset's heads
 and resolution, exactly as the JAX package's.
 
-``--gpus`` keeps the reference's meaning and picks the device: ``-1`` is
-the CPU, otherwise ``cuda:<first id>``.  Asking for the card where there is
+``--gpus`` keeps the reference's meaning and picks the devices: ``-1`` is
+the CPU, otherwise one card per id (``extras["devices"]``).  Training runs
+one rank per card (``train/run.py``); the test and motion-model lines run
+on the first (``extras["device"]``).  Asking for the card where there is
 none raises (``resolve_device``); nothing falls back to the CPU.
 """
 
@@ -19,7 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -61,32 +63,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_frame_dist_AFE", dest="max_frame_dist_afe",
                    type=int, default=defaults.max_frame_dist_afe)
     p.add_argument("--gpus", type=str, default="0",
-                   help="-1 runs on the CPU; otherwise the first id is the "
-                        "CUDA device (the reference's flag)")
+                   help="-1 runs on the CPU; otherwise the CUDA devices, "
+                        "one training rank each (the reference's flag)")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--exp_dir", type=str, default="exp")
     p.add_argument("--data_dir", type=str, default="data")
     return p
 
 
-def device_of(gpus: str) -> torch.device:
-    """``--gpus`` -> the device: ``-1`` the CPU, ``"2,3"`` ``cuda:2``."""
-    ids = [int(g) for g in str(gpus).split(",") if g.strip() != ""]
-    if not ids:
-        raise SystemExit(f"error: --gpus expects ids or -1, got {gpus!r}")
-    return torch.device("cpu") if ids[0] < 0 else torch.device("cuda", ids[0])
+def device_of(gpus: str) -> List[torch.device]:
+    """``--gpus`` -> the devices: ``-1`` ``[cpu]``, ``"2,3"`` ``[cuda:2,
+    cuda:3]``."""
+    try:
+        ids = [int(g) for g in str(gpus).split(",") if g.strip() != ""]
+    except ValueError:
+        ids = []
+    if ids == [-1]:
+        return [torch.device("cpu")]
+    if not ids or min(ids) < 0 or len(set(ids)) != len(ids):
+        raise SystemExit(f"error: --gpus expects distinct ids or -1, got "
+                         f"{gpus!r}")
+    return [torch.device("cuda", i) for i in ids]
 
 
 def parse_config(argv: Optional[Sequence[str]] = None):
     """Returns (cfg, extras); extras carries the runtime options that are
-    not ``Config`` fields, ``device`` (from ``--gpus``) among them."""
+    not ``Config`` fields, ``devices`` (from ``--gpus``) and ``device``
+    (the first of them) among them."""
     args = build_parser().parse_args(argv)
     d = vars(args).copy()
+    devices = device_of(d.pop("gpus"))
     extras = {
         "num_workers": d.pop("num_workers"),
         "exp_dir": d.pop("exp_dir"),
         "data_dir": d.pop("data_dir"),
-        "device": device_of(d.pop("gpus")),
+        "device": devices[0],
+        "devices": devices,
     }
     for tf in _TUPLE_FIELDS:
         try:

@@ -155,5 +155,5 @@ def get_dataset(name: str, prediction_model: bool = False):
     if name in _INFOS:
         raise NotImplementedError(
             f"the {name!r} dataset is not ported yet (ROADMAP.md, queue "
-            "A.6: data pipeline)")
+            "A.6: COCO and custom datasets)")
     raise KeyError(name)

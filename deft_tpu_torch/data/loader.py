@@ -17,6 +17,16 @@ samples into numpy arrays (``collate``).
   dataset's colour-augmentation generator from its process id, as the JAX
   loader does.  ``close()`` stops the pool.
 
+Under data-parallel training (``rank``, ``world``; ``deft_tpu_torch.
+distributed``) every rank draws the same epoch order from the same seed and
+keeps rows ``rank::world`` of each global batch of ``batch_size``, so the
+ranks' batches together are the one-process batch at every step.  A global
+batch that ``world`` does not divide raises a ``ValueError``, as the JAX
+mesh's ``shard_batch`` does.  In process (``num_workers <= 1``) every rank
+builds the whole global batch and keeps its rows, so each sample's random
+draws are the one-process run's; the workers (``num_workers > 1``, seeded
+per process anyway) build only the rank's rows.
+
 Nothing here imports cv2 (the card's machine has none).
 """
 
@@ -48,6 +58,14 @@ def _worker_load(idxs):
     return collate([_WORKER_DATASET[i] for i in idxs])
 
 
+def rank_rows(batch: List, rank: int, world: int) -> List:
+    """Rank ``rank``'s rows of a global batch: ``batch[rank::world]``."""
+    if len(batch) % world:
+        raise ValueError(f"a global batch of {len(batch)} does not split "
+                         f"over {world} ranks")
+    return batch[rank::world]
+
+
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     keys = samples[0].keys()
     return {k: np.stack([s[k] for s in samples]) for k in keys}
@@ -56,9 +74,14 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, drop_last: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"--batch_size {batch_size} does not split "
+                             f"over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank = rank
+        self.world = world
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
@@ -108,10 +131,11 @@ class DataLoader:
         batches = self._batches()
         if self.num_workers <= 1:
             for idxs in batches:
-                yield collate([self.dataset[i] for i in idxs])
+                yield collate(rank_rows([self.dataset[i] for i in idxs],
+                                        self.rank, self.world))
             return
         pool = self._process_pool()
-        todo = iter(batches)
+        todo = (rank_rows(idxs, self.rank, self.world) for idxs in batches)
         pending = deque(pool.apply_async(_worker_load, (idxs,))
                         for _, idxs in zip(range(2 * self.num_workers), todo))
         while pending:

@@ -11,6 +11,13 @@ evaluates the window similarity against its on-device ring and runs the
 association cascade.  Embeddings stay on the device from ``detect`` to the
 ring.
 
+The test-time geometry is the JAX package's (``_transform_scale``): fix_res
+by default, ``cfg.keep_res`` (the frame padded to a multiple of 32) or
+``cfg.fix_short`` (the short side fixed); each frame's meta carries its own
+input size, centre and scale into the decode's ``post_process``.  Under
+``cfg.flip_test`` the trunk also runs on the mirrored frames and the heads
+are averaged (``DEFTNet.detect``).
+
 KITTI tracks cars only: ``run`` hands the tracker the Car detections and
 their embeddings.  nuScenes runs one tracker per tracking class, all drawing
 ids from one ``IdAllocator`` and stepping one LSTM motion model, and
@@ -53,7 +60,8 @@ from deft_tpu_torch.inference.geometry import camera_box_to_global
 from deft_tpu_torch.inference.post_process import generic_post_process
 from deft_tpu_torch.models.factory import create_model, resolve_device
 from deft_tpu_torch.ops.affine import get_affine_transform
-from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_separable
+from deft_tpu_torch.ops.warp import (resize_linear, separable_inverse_tf,
+                                     warp_affine_separable)
 from deft_tpu_torch.tracking.basetrack import IdAllocator
 from deft_tpu_torch.tracking.motion_lstm import LSTMMotion
 from deft_tpu_torch.tracking.tracker import STrack, Tracker
@@ -131,11 +139,8 @@ class Detector:
                  device="cuda", motion_state_dict: Optional[dict] = None):
         if cfg.dataset not in ("mot", "kitti_tracking", "nuscenes"):
             raise NotImplementedError(f"dataset {cfg.dataset!r} {_LATER}")
-        for flag in ("debug", "flip_test", "keep_res"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} {_LATER}")
-        if cfg.fix_short > 0:
-            raise NotImplementedError(f"fix_short {_LATER}")
+        if cfg.debug:
+            raise NotImplementedError(f"debug {_LATER}")
         self.cfg = cfg
         self.dataset = cfg.dataset
         self.device = resolve_device(device)
@@ -183,17 +188,46 @@ class Detector:
     # ---- preprocessing (reference detector.py:346-422) ------------------------
 
     def _transform_scale(self, image, scale: float = 1.0):
-        """Frame geometry under fix_res (reference detector.py:346-376; the
-        only preprocessing this port runs): (image, c, s, inp_w, inp_h,
-        height, width) with the frame's centre, its longer side and the
-        config's input size."""
-        if scale != 1.0:
-            raise NotImplementedError(f"test scales != 1 {_LATER}")
+        """Frame geometry (reference detector.py:346-376, ``deft_tpu/
+        inference/detector.py:170-197``): (the frame, at ``scale``; its
+        centre ``c`` and scale ``s``; the input width and height; the
+        original height and width).
+
+        * ``fix_short``: the short side becomes ``cfg.fix_short``, the long
+          one keeps the aspect and rounds up to a multiple of 64; ``s`` is
+          the frame's [w, h];
+        * fix_res (the default): the config's input size, ``s`` the longer
+          original side;
+        * ``keep_res``: the scaled frame padded to ``(size | cfg.pad) + 1``
+          around its centre ``size // 2``; ``s`` is the [inp_w, inp_h].
+
+        A scale other than 1 resizes the frame on the host first
+        (``ops/warp.py::resize_linear``, cv2's INTER_LINEAR)."""
+        cfg = self.cfg
         height, width = image.shape[:2]
-        c = np.array([width / 2.0, height / 2.0], np.float32)
-        s = max(height, width) * 1.0
-        return (image, c, s, self.cfg.input_w, self.cfg.input_h, height,
-                width)
+        new_height = int(height * scale)
+        new_width = int(width * scale)
+        if cfg.fix_short > 0:
+            if height < width:
+                inp_h = cfg.fix_short
+                inp_w = (int(width / height * inp_h) + 63) // 64 * 64
+            else:
+                inp_w = cfg.fix_short
+                inp_h = (int(height / width * inp_w) + 63) // 64 * 64
+            c = np.array([width / 2, height / 2], np.float32)
+            s = np.array([width, height], np.float32)
+        elif not cfg.keep_res:
+            inp_h, inp_w = cfg.input_h, cfg.input_w
+            c = np.array([new_width / 2.0, new_height / 2.0], np.float32)
+            s = max(height, width) * 1.0
+        else:
+            inp_h = (new_height | cfg.pad) + 1
+            inp_w = (new_width | cfg.pad) + 1
+            c = np.array([new_width // 2, new_height // 2], np.float32)
+            s = np.array([inp_w, inp_h], np.float32)
+        if new_width != width or new_height != height:
+            image = resize_linear(np.asarray(image), new_width, new_height)
+        return image, c, s, inp_w, inp_h, height, width
 
     def _default_calib(self, width, height) -> np.ndarray:
         return np.array(
@@ -201,14 +235,17 @@ class Detector:
              [0, self.rest_focal_length, height / 2, 0],
              [0, 0, 1, 0]], np.float32)
 
-    def pre_process(self, image, input_meta: Optional[dict] = None):
+    def pre_process(self, image, input_meta: Optional[dict] = None,
+                    scale: float = 1.0):
         """image: [H, W, 3] uint8 frame (numpy or tensor) -> (normalized
-        [1, inp_h, inp_w, 3] float32 on the device, meta).  ``input_meta``
-        may hold the camera's [3, 4] ``calib``, and the frame's public
-        detections ``cur_dets`` and ``pre_dets``, which pass into meta."""
-        _, c, s, inp_w, inp_h, height, width = self._transform_scale(image)
+        [1, inp_h, inp_w, 3] float32 on the device, meta: the frame's own
+        geometry, ``_transform_scale``'s).  ``input_meta`` may hold the
+        camera's [3, 4] ``calib``, and the frame's public detections
+        ``cur_dets`` and ``pre_dets``, which pass into meta."""
+        resized, c, s, inp_w, inp_h, height, width = self._transform_scale(
+            image, scale)
         trans_input = get_affine_transform(c, s, 0, [inp_w, inp_h])
-        frame = torch.as_tensor(image, device=self.device)[None]
+        frame = torch.as_tensor(resized, device=self.device)[None]
         warped = warp_affine_separable(
             frame, separable_inverse_tf(c, s, inp_w, inp_h), inp_h, inp_w)
         images = (warped / 255.0 - self._mean) / self._std
@@ -252,12 +289,15 @@ class Detector:
         """Device step over a batch [B, H, W, 3]: (dets dict of numpy
         [B, K, ...], embeddings [B, K, E] on the device).  Under
         ``cfg.embed_parity`` the embeddings are sampled at centres
-        normalized by the original dims of ``meta``'s frame (one geometry
-        for the batch, as under fix_res)."""
+        normalized by the original dims of ``meta``'s frame: one geometry
+        for the batch, whose frames share their size (each geometry is a
+        function of the frame's size).  Under ``cfg.flip_test`` the trunk
+        runs at batch 2B (``DEFTNet.detect``)."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         ptf = parity_tf(meta) if self.cfg.embed_parity else None
-        dets, emb = self.model.detect(images, k=self.cfg.K, parity_tf=ptf)
+        dets, emb = self.model.detect(images, k=self.cfg.K, parity_tf=ptf,
+                                      flip_test=self.cfg.flip_test)
         return {k: v.cpu().numpy() for k, v in dets.items()}, emb
 
     def post_process(self, dets, meta):

@@ -15,7 +15,12 @@ The runner overlaps them:
 * Frames travel raw (uint8, no cv2 on the host) from a pinned [chunk, H, W,
   3] slab with ``non_blocking=True`` and are warped on the device, the JAX
   runner's ``device_warp`` route.  A slab is reused only after the event
-  recorded behind its upload has passed.
+  recorded behind its upload has passed.  Under ``cfg.keep_res`` or
+  ``cfg.fix_short`` the input size follows the frame's, and the runner
+  warps on the host as the JAX one does there (``runner.py:141-157``): each
+  frame goes through ``ops/warp.py::warp_affine_uint8`` (cv2's bilinear
+  warp in numpy) with its own transform, and the warped uint8 frames are
+  copied into a slab at dispatch and normalized on the device.
 * Each dispatch's packed detections (float32) and similarities (float16, or
   uint8 under ``sims_quant``) are joined on the device into one byte buffer
   and come back in ONE ``non_blocking`` copy into a pinned buffer, followed
@@ -29,11 +34,14 @@ The runner overlaps them:
   before the next sequence).
 * Under ``cfg.public_det`` the chunk is 1, and a frame whose meta carries
   ``cur_dets`` runs ``frame_step_embed`` at those boxes' centres (uploaded
-  from a pinned buffer) on the device-warped frame: no heads, no decode,
-  only the similarity comes back, and the tracker gets the public boxes.
-  (The JAX runner warps such frames on the host; the port has no host
-  warp.)  ``cfg.embed_parity`` feeds every frame program its frame's
-  ``parity_tf``.
+  from a pinned buffer) on the frame warped as the others are: no heads,
+  no decode, only the similarity comes back, and the tracker gets the
+  public boxes.  (The JAX runner warps such frames on the host; the port
+  warps them on the device under fix_res.)  ``cfg.embed_parity`` feeds every frame program its frame's
+  ``parity_tf``; a chunk's frames share its first frame's, which is exact
+  only under fix_res, so ``embed_parity`` with a chunk above 1 under
+  ``keep_res`` or ``fix_short`` raises a ``ValueError``, as in the JAX
+  runner.  ``cfg.flip_test`` passes into every frame program.
 
 On a CPU device (the tests) the same code runs synchronously, without pinned
 memory or events.  Not ported yet (ROADMAP.md, queue A): YUV and delta
@@ -53,7 +61,7 @@ import torch
 from deft_tpu_torch.inference.detector import parity_tf, public_det_centers
 from deft_tpu_torch.models.deft import new_ring, unpack_dets
 from deft_tpu_torch.ops.affine import get_affine_transform
-from deft_tpu_torch.ops.warp import separable_inverse_tf
+from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_uint8
 from deft_tpu_torch.tracking.tracker import freshness_window
 
 RING_SLOTS = 50
@@ -149,6 +157,15 @@ class PipelinedRunner:
         # public frames interleave their centres' uploads with the ring
         # state: one frame per dispatch (runner.py:117-119)
         self.chunk = 1 if cfg.public_det else max(1, chunk)
+        # the input geometry follows each frame's size: warp on the host
+        self.host_warp = cfg.keep_res or cfg.fix_short > 0
+        if cfg.embed_parity and self.chunk > 1 and self.host_warp:
+            # a chunk's program takes its first frame's inverse transform,
+            # exact only under fix_res (runner.py:121-129)
+            raise ValueError(
+                "--embed_parity with chunked dispatch requires fix_res "
+                "preprocessing (constant per-frame transform); use chunk=1 "
+                "with keep_res/fix_short")
         self.device = detector.device
         self.sim_window = (freshness_window(cfg.dataset) + 2
                            if cfg.sim_window < 0 else cfg.sim_window)
@@ -231,23 +248,31 @@ class PipelinedRunner:
 
     def warp(self, image_bgr: np.ndarray, meta: Optional[dict] = None,
              dst: Optional[np.ndarray] = None):
-        """Host half of preprocessing (runner.py:730-776, device_warp): the
-        frame geometry and the [6] inverse transform; the frame itself stays
-        raw, copied into ``dst`` (a pinned slab slot) when its shape fits."""
+        """Host half of preprocessing (runner.py:730-776): the frame
+        geometry and, under fix_res (device_warp), the [6] inverse
+        transform with the frame itself raw, copied into ``dst`` (a pinned
+        slab slot) when its shape fits; under ``host_warp`` the frame
+        warped to its input size (uint8) and no transform."""
         frame, c, s, inp_w, inp_h, height, width = self.det._transform_scale(
             image_bgr)
         frame = np.asarray(frame)
+        trans_input = get_affine_transform(c, s, 0, [inp_w, inp_h])
+        warp_tf = None
+        if self.host_warp:
+            frame = warp_affine_uint8(frame, trans_input, inp_w, inp_h)
+        else:
+            warp_tf = separable_inverse_tf(c, s, inp_w, inp_h)
         if dst is not None and dst.shape == frame.shape:
             np.copyto(dst, frame)
             frame = dst
         frame_meta = {
-            "warp_tf": separable_inverse_tf(c, s, inp_w, inp_h),
+            "warp_tf": warp_tf,
             "c": c, "s": s,
             "out_height": inp_h // self.cfg.down_ratio,
             "out_width": inp_w // self.cfg.down_ratio,
             "inp_height": inp_h, "inp_width": inp_w,
             "height": height, "width": width,
-            "trans_input": get_affine_transform(c, s, 0, [inp_w, inp_h]),
+            "trans_input": trans_input,
             "calib": (np.array(meta["calib"], np.float32)
                       if meta and "calib" in meta
                       else self.det._default_calib(width, height)),
@@ -263,7 +288,9 @@ class PipelinedRunner:
         pipeline is full, else None."""
         t0 = time.perf_counter()
         dst = None
-        if not self._chunk_buf:
+        if not self._chunk_buf and not self.host_warp:
+            # the pooled slab of raw frames (a warped frame's size is
+            # known only after its warp: those are copied at dispatch)
             self._cur_stack = self._slabs.take(
                 (self.chunk,) + tuple(image_bgr.shape), torch.uint8)
         # a chunk begun by submit_warped() has no slab: its frames are
@@ -350,7 +377,8 @@ class PipelinedRunner:
                   sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,
                   parity_tf=self._parity_tf(metas[0]),
                   warp_tf=metas[0]["warp_tf"],
-                  warp_out=(metas[0]["inp_height"], metas[0]["inp_width"]))
+                  warp_out=(metas[0]["inp_height"], metas[0]["inp_width"]),
+                  flip_test=self.cfg.flip_test)
         if self.chunk == 1:
             packed, sims = model.frame_step(images, self.state,
                                             self.cfg.out_thresh, **kw)

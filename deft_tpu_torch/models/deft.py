@@ -12,9 +12,11 @@ Entry points, with the JAX layouts at their boundary:
   ``image`` is NHWC as in the JAX package, feature maps stay NCHW;
 * ``trunk(image)`` -> ``(head input, feature_maps[13])``, the forward
   without the head towers;
-* ``detect(image, k, parity_tf)`` -> sigmoided + decoded top-K detections
-  (the depth head decoded to metres) and their AFE embeddings, for any batch
-  (the nuScenes rig runs its cameras as one batch; no ``flip_test`` yet);
+* ``detect(image, k, parity_tf, flip_test)`` -> sigmoided + decoded top-K
+  detections (the depth head decoded to metres) and their AFE embeddings,
+  for any batch (the nuScenes rig runs its cameras as one batch);
+  ``flip_test`` runs the trunk at twice the batch, on the images and their
+  mirrors;
 * ``embed_image(image, centers)`` -> the AFE embeddings at given centres
   (public detections: no heads, no decode);
 * ``extract`` and ``window_similarity`` re-export the AFE head;
@@ -30,8 +32,10 @@ Entry points, with the JAX layouts at their boundary:
   similarity against the ``sim_window`` freshest slots of the embedding ring
   and the conditional ring write, with every detection field packed into one
   float32 vector (``pack_dets``) and the similarity in float16 (or uint8);
-  ``frame_step_embed`` is the public-detection frame: device warp, trunk,
-  embeddings at the given centres, the same similarity and ring write.
+  each takes ``flip_test`` into its ``detect``.  ``frame_step_embed`` is
+  the public-detection frame (it does not flip, as in the JAX package):
+  device warp, trunk, embeddings at the given centres, the same similarity
+  and ring write.
 
 The ring state ``{"embeds" [W, M, E] float32, "counts" [W] int32, "ptr" []
 int64}`` is a dict of device tensors that the frame programs update in place
@@ -184,7 +188,8 @@ class DEFTNet(DLASeg):
         return self.AFE.window_similarity(window_embeds, window_counts,
                                           e_next, n_next)
 
-    def detect(self, image: torch.Tensor, k: int = 100, parity_tf=None):
+    def detect(self, image: torch.Tensor, k: int = 100, parity_tf=None,
+               flip_test: bool = False):
         """forward -> sigmoid -> decode -> embedding extract.
 
         Returns (dets, embeddings): dets is a dict of [B, K, ...] decoded
@@ -198,8 +203,18 @@ class DEFTNet(DLASeg):
         original pixels and normalized by the original dims
         (``deft_tpu/models/deft.py:249-257``), although the feature maps
         live in the warped input frame.
+
+        ``flip_test`` runs the trunk on the images and their horizontal
+        mirrors as one batch of 2B and averages the heads as the reference
+        does (``deft_tpu/models/deft.py:210-226``): ``hm``, ``wh``, ``dep``
+        and ``dim`` with the mirrored half flipped back, ``amodel_offset``
+        likewise with its x channels (the even ones) negated; every other
+        head and the 13 feature maps come from the unflipped half.
         """
-        outputs, feature_maps = self(image)
+        if flip_test:
+            outputs, feature_maps = self._flip_forward(image)
+        else:
+            outputs, feature_maps = self(image)
         outputs["hm"] = clamped_sigmoid(outputs["hm"])
         if "dep" in outputs:
             # inference depth decode (deft_tpu/models/deft.py:231-235)
@@ -228,6 +243,21 @@ class DEFTNet(DLASeg):
             centers = torch.stack([2.0 * cts[..., 0] / out_w - 1.0,
                                    2.0 * cts[..., 1] / out_h - 1.0], dim=-1)
         return dets, self.extract(feature_maps, centers)
+
+    def _flip_forward(self, image: torch.Tensor):
+        """``forward`` under ``flip_test`` (``detect``'s docstring)."""
+        b = image.shape[0]
+        outputs, feature_maps = self(torch.cat([image, image.flip(2)]))
+        for head, o in outputs.items():
+            mirrored = o[b:].flip(2)                       # NHWC: W is dim 2
+            if head in ("hm", "wh", "dep", "dim"):
+                outputs[head] = (o[:b] + mirrored) / 2.0
+            elif head == "amodel_offset":
+                mirrored[..., 0::2] *= -1.0                # a copy: flip's
+                outputs[head] = (o[:b] + mirrored) / 2.0
+            else:
+                outputs[head] = o[:b]
+        return outputs, [fm[:b] for fm in feature_maps]
 
     def embed_image(self, image: torch.Tensor, centers: torch.Tensor):
         """The trunk, then the AFE embeddings at given centres: the
@@ -328,16 +358,17 @@ class DEFTNet(DLASeg):
     def frame_step(self, image: torch.Tensor, state, out_thresh: float,
                    k: int = 100, class_filter: int = -1,
                    sims_quant: bool = False, sim_window: int = 0,
-                   parity_tf=None, warp_tf=None, warp_out=None):
+                   parity_tf=None, warp_tf=None, warp_out=None,
+                   flip_test: bool = False):
         """One frame of tracking on the device (``deft_tpu/models/
         deft.py:403-455``): image [1, H, W, 3] (raw uint8 with ``warp_tf``
         and ``warp_out``, else uint8 or normalized at the input size) ->
         (packed dets, sims); the ring in ``state`` is updated in place.
-        ``parity_tf`` as ``detect``'s."""
+        ``parity_tf`` and ``flip_test`` as ``detect``'s."""
         if warp_tf is not None:
             image = self._warp_normalize(image, warp_tf, warp_out)
         dets, emb = self.detect(self._maybe_normalize(image), k=k,
-                                parity_tf=parity_tf)
+                                parity_tf=parity_tf, flip_test=flip_test)
         return self._frame_tail({key: v[0] for key, v in dets.items()},
                                 emb[0], state, out_thresh, class_filter,
                                 sims_quant, sim_window)
@@ -346,7 +377,8 @@ class DEFTNet(DLASeg):
     def frame_chunk(self, images: torch.Tensor, state, out_thresh: float,
                     k: int = 100, class_filter: int = -1,
                     sims_quant: bool = False, sim_window: int = 0,
-                    parity_tf=None, warp_tf=None, warp_out=None):
+                    parity_tf=None, warp_tf=None, warp_out=None,
+                    flip_test: bool = False):
         """``frame_step`` over a chunk [T, H, W, 3] in frame order
         (``deft_tpu/models/deft.py:492-523``; a loop where the JAX package
         scans), after one batched warp.  One ``parity_tf`` serves the chunk,
@@ -357,7 +389,7 @@ class DEFTNet(DLASeg):
         outs = [self.frame_step(images[t: t + 1], state, out_thresh, k=k,
                                 class_filter=class_filter,
                                 sims_quant=sims_quant, sim_window=sim_window,
-                                parity_tf=parity_tf)
+                                parity_tf=parity_tf, flip_test=flip_test)
                 for t in range(images.shape[0])]
         return _stack(outs)
 
@@ -366,14 +398,15 @@ class DEFTNet(DLASeg):
                             out_thresh: float, k: int = 100,
                             class_filter: int = -1, sims_quant: bool = False,
                             sim_window: int = 0, parity_tf=None,
-                            warp_tf=None, warp_out=None):
+                            warp_tf=None, warp_out=None,
+                            flip_test: bool = False):
         """``frame_chunk`` with one batched ``detect`` over the chunk, then
         the tail per frame in frame order (``deft_tpu/models/
         deft.py:525-576``)."""
         if warp_tf is not None:
             images = self._warp_normalize(images, warp_tf, warp_out)
         dets, emb = self.detect(self._maybe_normalize(images), k=k,
-                                parity_tf=parity_tf)
+                                parity_tf=parity_tf, flip_test=flip_test)
         outs = [self._frame_tail({key: v[t] for key, v in dets.items()},
                                  emb[t], state, out_thresh, class_filter,
                                  sims_quant, sim_window)

@@ -23,7 +23,8 @@ A float32 input runs the ``torch.nn`` module's own forward in eval mode.
 
 In train mode a BatchNorm is flax's ``BatchNorm(use_running_average=False)``
 (``train_batch_norm``): it normalizes with the batch statistics in float32
-(the biased variance, as torch does too) and updates ``running_mean`` and
+(the biased variance, taken as E[x^2] - E[x]^2 as flax takes it; over the
+global batch under a process group) and updates ``running_mean`` and
 ``running_var`` with momentum 0.1 in torch's convention (flax's 0.9), the
 variance the *biased* one, where ``torch.nn.BatchNorm2d`` takes the unbiased
 one.  A module called twice in one step updates its statistics twice, in
@@ -37,6 +38,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from deft_tpu_torch import distributed
 
 # torch BatchNorm2d(momentum=0.1) == flax BatchNorm(momentum=0.9); only the
 # eval-mode running statistics matter for inference
@@ -74,14 +77,57 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             self.output_padding, self.groups, self.dilation)
 
 
+class _TrainBatchNorm(torch.autograd.Function):
+    """flax's train-mode BatchNorm over every axis of ``x`` but axis 1,
+    with its moments over the global batch (``distributed.global_sum``):
+    forward (x, weight, bias) -> (y, mean, var); the backward sums dy and
+    dy * x_hat over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        count = x.numel() // x.shape[1] * distributed.world_size()
+        sums = distributed.global_sum(
+            torch.stack([x.sum(dims), (x * x).sum(dims)]))
+        mean = sums[0] / count
+        # flax's variance: E[x^2] - E[x]^2 in float32, floored at 0
+        var = (sums[1] / count - mean * mean).clamp(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (x - mean.view(shape)) * (invstd * weight).view(shape) \
+            + bias.view(shape)
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, mean, invstd, weight = ctx.saved_tensors
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        x_hat = (x - mean.view(shape)) * invstd.view(shape)
+        local = torch.stack([dy.sum(dims), (dy * x_hat).sum(dims)])
+        sums = distributed.global_sum(local) / ctx.count
+        dx = (dy - sums[0].view(shape) - x_hat * sums[1].view(shape)) \
+            * (invstd * weight).view(shape)
+        # this rank's parts of the weight's and bias's gradients: the
+        # trainer sums those over the ranks
+        return dx, local[1], local[0], None
+
+
 def train_batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """flax's train-mode BatchNorm over every axis of float32 ``x`` but
     axis 1 (module docstring): the batch-normalized ``x``, and ``bn``'s
-    running statistics updated with the biased batch variance."""
-    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    running statistics updated with the batch's biased variance.  Under a
+    process group the batch is the global one (``deft_tpu_torch.
+    distributed``): the moments and the backward's sums are summed over
+    the ranks, and every rank's running statistics get the global
+    moments."""
+    y, mean, var = _TrainBatchNorm.apply(x, bn.weight, bn.bias, bn.eps)
     with torch.no_grad():
-        dims = [d for d in range(x.dim()) if d != 1]
-        var, mean = torch.var_mean(x, dim=dims, unbiased=False)
         bn.running_mean.lerp_(mean, bn.momentum)
         bn.running_var.lerp_(var, bn.momentum)
         bn.num_batches_tracked.add_(1)

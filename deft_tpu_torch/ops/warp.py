@@ -17,6 +17,13 @@ cv2's bilinear warp does it, for any affine (a rotation included) -- the
 inverse map in double precision, source positions and the blend in float32,
 the round to uint8, zeros outside the image.  It agrees with cv2 (5.0)
 within one uint8 step.
+
+``resize_linear`` is ``cv2.resize(img, (w, h))`` (INTER_LINEAR), which the
+JAX detector runs for a test scale other than 1 (``deft_tpu/inference/
+detector.py:191-194``): half-pixel centres, edge pixels repeated, and
+cv2's fixed-point arithmetic for uint8 (11-bit weights, the horizontal
+blend kept as int32, the vertical one as its vectorized loop does it).  It
+agrees with cv2 (5.0) within one uint8 step.
 """
 
 from __future__ import annotations
@@ -70,6 +77,38 @@ def separable_inverse_tf(c, s, out_w: int, out_h: int) -> np.ndarray:
     if abs(inv[0, 1]) >= 1e-5 or abs(inv[1, 0]) >= 1e-5:
         raise ValueError("non-separable affine (rotation != 0)")
     return inv.reshape(-1)
+
+
+def _linear_taps(src_n: int, dst_n: int):
+    """cv2's INTER_LINEAR taps along one axis: the first source index of
+    each output position and its two weights in 1/2048 (int32)."""
+    f = ((np.arange(dst_n, dtype=np.float64) + 0.5) * (src_n / dst_n)
+         - 0.5).astype(np.float32)
+    idx = np.floor(f).astype(np.int64)
+    f = f - idx.astype(np.float32)
+    f[idx < 0] = 0.0
+    idx = np.maximum(idx, 0)
+    last = idx >= src_n - 1
+    f[last] = 0.0
+    idx[last] = src_n - 1
+    w1 = np.rint(f * 2048.0).astype(np.int32)
+    w0 = np.rint((1.0 - f) * 2048.0).astype(np.int32)
+    return idx, np.minimum(idx + 1, src_n - 1), w0, w1
+
+
+def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h))`` of a uint8 [H, W(, C)] image
+    (module docstring) -> uint8 [out_h, out_w(, C)]."""
+    h, w = img.shape[:2]
+    src = (img if img.ndim == 3 else img[..., None]).astype(np.int32)
+    x0, x1, a0, a1 = _linear_taps(w, out_w)
+    y0, y1, b0, b1 = _linear_taps(h, out_h)
+    rows = (src[:, x0] * a0[None, :, None]
+            + src[:, x1] * a1[None, :, None])          # [H, out_w, C]
+    top = ((rows[y0] >> 4) * b0[:, None, None]) >> 16
+    bottom = ((rows[y1] >> 4) * b1[:, None, None]) >> 16
+    out = np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
+    return out if img.ndim == 3 else out[..., 0]
 
 
 def warp_affine_uint8(img: np.ndarray, trans, out_w: int,

@@ -33,7 +33,7 @@ and runner take every frame's own size (its ``meta``, the ``parity_tf`` of
 reaches only the 3-D decoding, so the runner's 2-D lines go without it and
 the nuScenes rig takes it from each image info.  ``--debug`` and
 ``--save_video`` need the visualizer, which is not ported yet
-(ROADMAP.md, queue A.3).
+(ROADMAP.md, queue A.4).
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def main(argv=None, stats: Optional[dict] = None):
     if cfg.debug > 0 or cfg.save_video:
         raise NotImplementedError(
             "--debug and --save_video need the visualizer, which is not "
-            "ported yet (ROADMAP.md, queue A.3)")
+            "ported yet (ROADMAP.md, queue A.4)")
 
     import torch
 

@@ -7,7 +7,8 @@ updates made, which place the learning-rate schedule).  The file is one that
 ``deft_tpu_torch.test`` loads (``cfg.load_model``), and that the reference's
 own loader reads.
 
-``load_train_state`` resumes a ``Trainer`` from such a file: the model's
+``load_train_state`` resumes a ``Trainer`` from such a file (every rank of
+a process group reads the same file, so all start from one state): the model's
 tensors tolerantly (``checkpoint.load_tolerant``: a mis-shaped or missing
 key keeps its value, an unexpected key is dropped), the optimizer's state
 where its parameter groups match (else fresh moments, with a message), the
@@ -24,16 +25,21 @@ own motion trainer does: ``{"epoch", "state_dict"}`` under its keys
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
 from deft_tpu_torch.checkpoint import load_checkpoint_blob, load_tolerant
+from deft_tpu_torch.distributed import rank
 
 
-def save_checkpoint(path: str, trainer, epoch: int) -> str:
+def save_checkpoint(path: str, trainer, epoch: int) -> Optional[str]:
     """Write ``trainer``'s model, optimizer, uncertainty weights and step
     at ``epoch`` to ``path`` (``.pth`` appended if missing); returns the
-    path."""
+    path.  Under a process group rank 0 alone writes (every rank holds the
+    same state); the others return None."""
+    if rank() != 0:
+        return None
     return _write({
         "epoch": int(epoch),
         "state_dict": {k: v.detach().cpu()

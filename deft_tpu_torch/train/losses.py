@@ -11,6 +11,16 @@ semantics, and so does the port).
 Targets are fixed-shape [B, M, ...] tensors with validity masks, as the data
 pipeline pads them; head outputs are NHWC, as ``DEFTNet.forward`` returns
 them.
+
+Under a process group (``deft_tpu_torch.distributed``) each rank holds its
+rows of the global batch, and every loss here is that rank's part of the
+global loss: its rows' sums over the *global* normalizers.  Each count that
+divides a loss or picks a branch (``num_pos``, the mask sums, ``cnt``,
+``n_pre`` ... ``n_total``, the accuracy's valid rows) is summed over the
+ranks before use (``global_sum``, no gradient: they are sums of targets),
+a mean over rows is divided by the world size too, and ``joint_loss``'s
+``s_det + s_id`` is counted on rank 0 alone.  So the ranks' values sum to
+the one-process value of the global batch, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from deft_tpu_torch.distributed import global_sum, rank, world_size
 from deft_tpu_torch.ops.decode import clamped_sigmoid, gather_feat
 
 
@@ -35,7 +46,7 @@ def fast_focal_loss(pred: torch.Tensor, target: torch.Tensor,
                          * neg_weights)
     pos_pred_pix = gather_feat(pred, ind)                     # [B, M, C]
     pos_pred = torch.gather(pos_pred_pix, 2, cat[..., None].long())[..., 0]
-    num_pos = torch.sum(mask)
+    num_pos = global_sum(torch.sum(mask))
     pos_loss = torch.sum(torch.log(pos_pred) * torch.pow(1.0 - pos_pred, 2.0)
                          * mask)
     return torch.where(num_pos == 0, -neg_loss,
@@ -49,7 +60,7 @@ def reg_weighted_l1_loss(output: torch.Tensor, mask: torch.Tensor,
     [B, H, W, F]; mask, target: [B, M, F]; ind: [B, M]."""
     pred = gather_feat(output, ind)
     loss = torch.sum(torch.abs(pred * mask - target * mask))
-    return loss / (torch.sum(mask) + 1e-4)
+    return loss / (global_sum(torch.sum(mask)) + 1e-4)
 
 
 def weighted_bce_loss(output: torch.Tensor, mask: torch.Tensor,
@@ -59,7 +70,7 @@ def weighted_bce_loss(output: torch.Tensor, mask: torch.Tensor,
     pred = gather_feat(output, ind)                           # [B, M, F]
     bce = (torch.clamp(pred, min=0) - pred * target
            + torch.log1p(torch.exp(-torch.abs(pred))))
-    return torch.sum(mask * bce) / (torch.sum(mask) + 1e-4)
+    return torch.sum(mask * bce) / (global_sum(torch.sum(mask)) + 1e-4)
 
 
 def _smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -70,10 +81,11 @@ def _smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def _masked_softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
     """``cross_entropy(logits * mask, labels)`` averaged over every row:
-    masked-out rows contribute log(num_classes) (``losses.py:163-166``)."""
+    masked-out rows contribute log(num_classes) (``losses.py:163-166``).
+    The rows of the global batch: every rank holds as many."""
     logp = F.log_softmax(logits * mask, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return torch.mean(nll)
+    return torch.mean(nll) / world_size()
 
 
 def bin_rot_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
@@ -89,7 +101,7 @@ def bin_rot_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
 
     def res_branch(sin_col, cos_col, bin_col):
         valid = (rotbin[:, bin_col] != 0).to(pred.dtype)
-        cnt = torch.sum(valid)
+        cnt = global_sum(torch.sum(valid))
         s = torch.sum(_smooth_l1(pred[:, sin_col],
                                  torch.sin(rotres[:, bin_col])) * valid)
         c = torch.sum(_smooth_l1(pred[:, cos_col],
@@ -130,10 +142,9 @@ def afe_loss(affinity: torch.Tensor, target: torch.Tensor,
     target_pre = mask_region_pre * target
     target_next = mask_region_next * target
     target_union = mask_region_union * target
-    n_pre = torch.sum(target_pre)
-    n_next = torch.sum(target_next)
-    n_union = torch.sum(target_union)
-    n_total = torch.sum(target)
+    n_pre, n_next, n_union, n_total = global_sum(torch.stack([
+        torch.sum(target_pre), torch.sum(target_next),
+        torch.sum(target_union), torch.sum(target)]))
 
     eps = 1e-12
     loss_pre = -torch.sum(target_pre * torch.log(input_pre + eps))
@@ -155,13 +166,15 @@ def afe_loss(affinity: torch.Tensor, target: torch.Tensor,
         idx_t = _argmax_first(target_pre, 2)[:, : n1 - 1]
         idx_p = _argmax_first(input_all, 2)[:, : n1 - 1]
         valid_rows = mask_pre[:, : n1 - 1].to(dt)
-        acc_pre = (torch.sum((idx_t == idx_p) * valid_rows)
-                   / valid_rows.sum().clamp(min=1.0))
         idx_t2 = _argmax_first(target_next, 1)[:, : n1 - 1]
         idx_p2 = _argmax_first(input_next, 1)[:, : n1 - 1]
         valid_cols = mask_next[:, : n1 - 1].to(dt)
+        n_rows, n_cols = global_sum(torch.stack([valid_rows.sum(),
+                                                 valid_cols.sum()]))
+        acc_pre = (torch.sum((idx_t == idx_p) * valid_rows)
+                   / n_rows.clamp(min=1.0))
         acc_next = (torch.sum((idx_t2 == idx_p2) * valid_cols)
-                    / valid_cols.sum().clamp(min=1.0))
+                    / n_cols.clamp(min=1.0))
     return {"loss_pre": loss_pre, "loss_next": loss_next,
             "loss_similarity": loss_sim, "loss": total,
             "accuracy_pre": acc_pre, "accuracy_next": acc_next,
@@ -220,6 +233,6 @@ def generic_loss(outputs: Dict[str, torch.Tensor],
 def joint_loss(det_total: torch.Tensor, match_total: torch.Tensor,
                s_det: torch.Tensor, s_id: torch.Tensor) -> torch.Tensor:
     """Kendall uncertainty weighting (``trainer.py:168``, intended
-    semantics)."""
-    return (torch.exp(-s_det) * det_total + torch.exp(-s_id) * match_total
-            + s_det + s_id)
+    semantics); ``s_det + s_id`` on rank 0 alone (module docstring)."""
+    total = torch.exp(-s_det) * det_total + torch.exp(-s_id) * match_total
+    return total + s_det + s_id if rank() == 0 else total

@@ -10,6 +10,17 @@ The flags are ``train.py``'s (``cli.py``), so each ``train.py`` line of
 ``experiments/*.sh`` runs as it is.  ``--gpus -1`` runs on the CPU; by
 default the run is on ``cuda:0``, and it raises where there is no card.
 
+Several ids (``--gpus 0,1,2,3``) train on every one of those cards, as the
+JAX trainer shards its batch over every device: one process per id
+(``torch.multiprocessing``), each the rank of an NCCL process group that
+runs ``train_rank``, with its rows of each global batch of
+``--batch_size`` (``data/loader.py``), the global loss normalizers and
+BatchNorm moments, and the gradients summed over the ranks
+(``deft_tpu_torch/distributed.py``).  Rank 0 alone writes the ``.pth``
+files, ``log.txt``, ``scalars/`` and the profile.  ``train_rank(rank,
+world, backend, argv)`` is also the entry for one rank of a group started
+elsewhere (the tests run two gloo ranks on the CPU).
+
 The loop is the JAX one (``train.py:21-150``): the dataset's ``train``
 split through ``data/loader.py`` (``--num_workers``, ``--batch_size``,
 order from ``--seed``), a seeded model (``create_model``), a ``Trainer``
@@ -43,38 +54,103 @@ def main(argv=None, stats: Optional[dict] = None):
     step, the wait for the batch included, to the end of this one, which
     waits for the device) and ``wait_seconds`` (the wait for the batch),
     ``first`` and ``last`` (the loss statistics of the first and the last
-    step), ``samples`` and ``checkpoint`` (the last ``model_last.pth``);
+    step), ``samples`` and ``checkpoint`` (the last ``model_last.pth``),
+    ``backend`` and ``world`` (the process group's; None and 1 without);
     under ``--profile``, ``device_ms`` (device kernel time) and
-    ``profiled_steps`` (the steps it covers).
+    ``profiled_steps`` (the steps it covers).  ``stats`` is kept by a
+    one-process run; with several ids, pass it to ``train_rank``.
     Returns the evaluation's value under ``--eval_val``, else None."""
     from deft_tpu_torch.cli import parse_config
 
     cfg, extras = parse_config(argv)
     if cfg.test:
         return _run_tracking_eval(argv, cfg)
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    world = len(extras["devices"])
+    if world == 1:
+        train_rank(0, 1, None, argv, stats)
+    else:
+        if stats is not None:
+            raise ValueError("stats are kept by a one-process run; with "
+                             "several --gpus ids pass them to train_rank")
+        import torch.multiprocessing as mp
+
+        from deft_tpu_torch.distributed import free_address
+
+        mp.spawn(train_rank, args=(world, "nccl", argv, None,
+                                   free_address()), nprocs=world)
+    if cfg.eval_val:
+        return _run_tracking_eval(argv, cfg)
+    return None
+
+
+def train_rank(rank: int, world: int, backend: Optional[str], argv,
+               stats: Optional[dict] = None,
+               init_method: Optional[str] = None):
+    """Rank ``rank`` of ``world`` training the line ``argv``: on the
+    ``rank``-th id of ``--gpus`` (every rank on the one device where it
+    names one), in a ``backend`` process group (``"nccl"`` on the card,
+    ``"gloo"`` on the CPU) that it joins at ``init_method`` (a free
+    localhost port by default, which only ``world`` 1 may take) and leaves
+    at the end.  ``backend`` None is the one-process run, with no group.
+    ``stats`` as ``main``'s, the rank's own.  Returns the rank's
+    ``Trainer``."""
+    from deft_tpu_torch import distributed
+    from deft_tpu_torch.cli import parse_config
+    from deft_tpu_torch.models.factory import resolve_device
+
+    cfg, extras = parse_config(argv)
+    devices = extras["devices"]
+    if len(devices) not in (1, world):
+        raise ValueError(f"{world} ranks on --gpus {devices}")
+    device = resolve_device(devices[rank] if len(devices) > 1
+                            else devices[0])
+    if backend is None:
+        if world != 1:
+            raise ValueError("several ranks need a process group backend")
+        return _train(cfg, extras, device, stats)
+    if init_method is None:
+        if world != 1:
+            raise ValueError("ranks of a group need one init_method")
+        init_method = distributed.free_address()
+    distributed.init(rank, world, backend, init_method, device)
+    try:
+        return _train(cfg, extras, device, stats)
+    finally:
+        distributed.close()
+
+
+def _train(cfg, extras, device, stats: Optional[dict]):
+    """The training loop of one rank (``main``'s docstring); returns its
+    ``Trainer``."""
+    import random
 
     import torch
 
+    from deft_tpu_torch import distributed
     from deft_tpu_torch.data.datasets import get_dataset
     from deft_tpu_torch.data.loader import DataLoader
-    from deft_tpu_torch.models.factory import create_model, resolve_device
+    from deft_tpu_torch.models.factory import create_model
     from deft_tpu_torch.train.checkpoint import (load_train_state,
                                                  save_checkpoint)
     from deft_tpu_torch.train.trainer import (Trainer, to_device,
                                               training_keys)
     from deft_tpu_torch.utils.logger import Logger
 
-    device = resolve_device(extras["device"])
+    rank, world = distributed.rank(), distributed.world_size()
+    # every rank draws the same augmentations in process (data/loader.py)
     np.random.seed(cfg.seed)
+    random.seed(cfg.seed)
     logger = Logger(cfg)
     logger.write(f"device: {device}"
                  + (f" ({torch.cuda.get_device_name(device)})"
-                    if device.type == "cuda" else ""))
+                    if device.type == "cuda" else "")
+                 + (f", rank 0 of {world}" if world > 1 else ""))
     data_dir = os.path.join(extras["data_dir"], _dataset_dirname(cfg))
     dataset_cls = get_dataset(cfg.dataset)
     loader = DataLoader(dataset_cls(cfg, "train", data_dir=data_dir),
                         cfg.batch_size, num_workers=extras["num_workers"],
-                        seed=cfg.seed)
+                        seed=cfg.seed, rank=rank, world=world)
     steps_per_epoch = max(len(loader), 1)
     trainer = Trainer(create_model(cfg.arch, cfg, device), cfg,
                       steps_per_epoch)
@@ -92,14 +168,16 @@ def main(argv=None, stats: Optional[dict] = None):
         try:
             val_loader = DataLoader(
                 dataset_cls(cfg, "val", data_dir=data_dir), cfg.batch_size,
-                shuffle=False, num_workers=extras["num_workers"])
+                shuffle=False, num_workers=extras["num_workers"],
+                rank=rank, world=world)
         except (FileNotFoundError, KeyError) as e:
             logger.write(f"no val split available ({e}); skipping periodic "
                          "val")
     logger.write(f"training on {device} | {steps_per_epoch} steps/epoch")
 
     if stats is not None:
-        stats.update(step_seconds=[], wait_seconds=[], samples=0)
+        stats.update(step_seconds=[], wait_seconds=[], samples=0,
+                     backend=distributed.backend(), world=world)
     keys = None
     prof = None
     try:
@@ -127,7 +205,7 @@ def main(argv=None, stats: Optional[dict] = None):
                     stats["samples"] += len(batch["image"])
                     stats.setdefault("first", out)
                     stats["last"] = out
-                if cfg.profile and prof is None:
+                if cfg.profile and prof is None and rank == 0:
                     prof = _device_profiler(device)
                     profiled_from = trainer.step
                 t_end = time.perf_counter()
@@ -173,9 +251,7 @@ def main(argv=None, stats: Optional[dict] = None):
             stats["profiled_steps"] = trainer.step - profiled_from
     logger.write("training done")
     logger.close()
-    if cfg.eval_val:
-        return _run_tracking_eval(argv, cfg)
-    return None
+    return trainer
 
 
 def _device_profiler(device):

@@ -21,6 +21,15 @@ one optimizer update.
   one host synchronisation; ``eval_step`` the same statistics in eval
   mode with no update.
 
+Under a process group (``deft_tpu_torch.distributed``, one rank per card)
+each rank steps on its rows of the global batch: its losses are its parts
+of the global loss (``losses.py``), its train-mode BatchNorms take the
+global moments (``layers.train_batch_norm``), the gradients are summed over
+the ranks after the backward (``sum_gradients``: the global loss's
+gradient, with no division by the world size), so every rank makes the
+same update; the statistics returned are the sums of the ranks' parts, the
+global batch's values.
+
 Float32 products stay off TF32, as everywhere in the port
 (``deft_tpu_torch/__init__.py``).
 """
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from deft_tpu_torch import distributed
 from deft_tpu_torch.train import losses as L
 
 # batch keys the model reads; the rest are targets (train.py::_training_keys)
@@ -99,8 +109,8 @@ class Trainer:
         self.device = dev
         self.s_det = nn.Parameter(torch.ones((), device=dev))
         self.s_id = nn.Parameter(torch.ones((), device=dev))
-        self.optimizer = make_optimizer(
-            cfg, list(model.parameters()) + [self.s_det, self.s_id])
+        self.params = list(model.parameters()) + [self.s_det, self.s_id]
+        self.optimizer = make_optimizer(cfg, self.params)
         self.step = 0
 
     def loss_and_stats(self, batch: Dict[str, torch.Tensor]):
@@ -125,6 +135,7 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         total, stats = self.loss_and_stats(batch)
         total.backward()
+        distributed.sum_gradients(self.params)
         self.optimizer.step()
         self.step += 1
         return _floats(stats)
@@ -139,6 +150,6 @@ class Trainer:
 
 def _floats(stats: Dict[str, torch.Tensor]) -> Dict[str, float]:
     keys = sorted(stats)
-    values = torch.stack([stats[k].detach().float().reshape(())
-                          for k in keys]).cpu().tolist()
+    values = distributed.global_sum(torch.stack(
+        [stats[k].detach().float().reshape(()) for k in keys])).cpu().tolist()
     return dict(zip(keys, values))

@@ -4,8 +4,9 @@
   the same ``Config``, field by field, and the same runtime options under
   the port's ``parse_config`` as under ``deft_tpu.cli``'s.
 * ``--gpus`` keeps the reference's meaning: ``-1`` is the CPU, otherwise the
-  first id names the CUDA device; ``deft_tpu_torch.test.main`` with the
-  default ``--gpus`` raises where CUDA is absent, before it reads anything.
+  ids name the CUDA devices (one training rank each), the first the device
+  of the test line; ``deft_tpu_torch.test.main`` with the default
+  ``--gpus`` raises where CUDA is absent, before it reads anything.
 * The port's CLI and test-entry modules import neither JAX nor
   ``deft_tpu``, nor cv2 or PIL (checked in a fresh interpreter), and no
   module of the port imports cv2 or PIL outside a function.
@@ -46,6 +47,7 @@ def test_recipe_line_parses_as_jax(key):
     for name, value in ref.items():
         assert mine[name] == value, name
     assert got_extras.pop("device") == torch.device("cuda", 0)
+    assert got_extras.pop("devices") == [torch.device("cuda", 0)]
     assert got_extras == want_extras
 
 
@@ -55,6 +57,9 @@ def test_recipe_line_parses_as_jax(key):
 def test_gpus_picks_the_device(gpus, device):
     _, extras = port_cli.parse_config(["tracking", "--gpus", gpus])
     assert extras["device"] == device
+    want = ([device] if gpus != "2,3"
+            else [torch.device("cuda", 2), torch.device("cuda", 3)])
+    assert extras["devices"] == want
 
 
 def test_aliases_and_tuples():

@@ -360,7 +360,7 @@ def test_public_configs_build(setup):
     np.testing.assert_allclose(ptf[6:], [240, 120])
 
 
-@pytest.mark.parametrize("flag", ["debug", "flip_test", "yuv_upload"])
+@pytest.mark.parametrize("flag", ["debug", "delta_upload", "yuv_upload"])
 def test_refusals_that_stay(setup, flag):
     cfg = port_mot_config(public_det=True, **SIZE).replace(
         **{flag: 1 if flag == "debug" else True})
