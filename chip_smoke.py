@@ -79,6 +79,20 @@ max_object=100, 50-slot rings) with seeded random weights:
   ``flip_test`` through ``run_multi`` (the trunk at 12 camera images); T1,
   T2 and T4 also held at the keep_res KITTI and fix_short MOT layer shapes
   in the kernel phase;
+* slice 13, the other model families (``archs_phase``, last): DLA-169
+  (``--arch dla_169``) tracking 10 MOT frames through ``Detector.run`` at
+  float32 (16 T1 per frame) and bf16 (T1 on its five 128-channel layers,
+  T4 on the other 11) and through the runner at chunk 1 (16 T2), the MOT
+  recipe's train line at ``--arch dla_169`` (bf16, batch 4, 3 steps,
+  in-process loader: 128 T4 and 128 T5 per step), DLA-34 with ``--dla_node
+  gcn`` (no DCN), and each detection family (``DETECTION_FAMILIES``:
+  ResNet-18/101, ResDCN-18/101, DLAv0-34, MobileNetV2 + MSRAUp, ResNet-18 +
+  the generic DLAUp) through ``create_model`` -> forward -> ``detect`` on
+  one frame at float32 and bf16, every DCN layer (T1 on the necks'
+  unclamped gather DCNs) held against its plain version on the model's own
+  activations and the heads against the plain-DCN network; T1, T2, T4 and
+  T5 also held at the DLA-169 layer shapes and T1 at ResDCN's (radius -1)
+  in the kernel phase;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -133,9 +147,11 @@ from deft_tpu_torch.data.synthetic_nuscenes import make_scene, make_tables
 import deft_tpu_torch.models.deft as deft_model
 from deft_tpu_torch.inference.detector import Detector, parity_tf
 from deft_tpu_torch.inference.runner import PipelinedRunner
+from deft_tpu_torch.models import dcn as dcn_module
 from deft_tpu_torch.models.dcn import HYBRID_CM_CHANNELS, DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
+from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_separable
 from deft_tpu_torch.train import run as port_train
 from deft_tpu_torch.track import (
     nuscenes_submission,
@@ -195,6 +211,28 @@ KITTI_LAYERS = [
     (24, 80, 256, 64, 1),
     (12, 40, 512, 256, 1),
 ]
+# DLA-169's DCNv2 layers at 544x960 input (DLA-60's and DLA-102's too: the
+# plans share their channels), checked against the model in the archs phase
+DLA169_LAYERS = [
+    (136, 240, 128, 128, 5),
+    (68, 120, 256, 128, 4),
+    (68, 120, 256, 256, 2),
+    (34, 60, 512, 256, 2),
+    (34, 60, 512, 512, 1),
+    (34, 60, 512, 128, 1),
+    (17, 30, 1024, 512, 1),
+]
+# ResDCN-18's deconv neck at 544x960 (msra 64: [256, 128, 64]); ResDCN-101's
+# first layer takes its 2048 channels, the other two are these
+RESDCN18_LAYERS = [
+    (17, 30, 512, 256, 1),
+    (34, 60, 256, 128, 1),
+    (68, 120, 128, 64, 1),
+]
+RESDCN101_FIRST = [(17, 30, 2048, 256, 1)]
+# the DCNs of the generic necks (MSRAUp, generic DLAUp): impl="gather",
+# unclamped, as the JAX package builds them
+GATHER_RADIUS = -1
 KITTI_SIZE = (375, 1242)       # KITTI image_02 frames
 CAR = 2                        # KITTI's tracked class (1-based)
 # kernel -> (source, TPU kernel it replaces, launch counter in cuda_dcn)
@@ -524,14 +562,15 @@ def backward_row(x, offsets, mask, rng, shape, regime, model="mot",
             "same_bits_two_calls_dx_doffsets_dmask": same_bits}
 
 
-def kernel_calls(name, x, offsets, mask, weight, bias):
+def kernel_calls(name, x, offsets, mask, weight, bias, radius=RADIUS):
     """(kernel, plain version, library yardstick, tolerance relative to
-    max|plain|, bound) of one kernel on these inputs.  Tolerances: float32
-    outputs 1e-5 (1e-4 for the fused product's sums of up to 4608 terms in
-    another order); bf16 outputs one bf16 step at the top of the range."""
+    max|plain|, bound) of one kernel on these inputs at clamp ``radius``
+    (the samplers; -1: none).  Tolerances: float32 outputs 1e-5 (1e-4 for
+    the fused product's sums of up to 4608 terms in another order); bf16
+    outputs one bf16 step at the top of the range."""
     h, w, c = x.shape
     args = (x, offsets, mask)
-    sample = grid_sample_yardstick(x, offsets, mask, RADIUS)
+    sample = grid_sample_yardstick(x, offsets, mask, radius)
     bf16_tol = 2.0 ** -7
     f32 = x.dtype == torch.float32
     if name == "dcn_fused":
@@ -555,7 +594,7 @@ def kernel_calls(name, x, offsets, mask, weight, bias):
                               cuda_dcn.deform_sample_onehot_reference, 2,
                               bf16_tol),
     }[name]
-    return (lambda: kernel(*args, RADIUS), lambda: plain(*args, RADIUS),
+    return (lambda: kernel(*args, radius), lambda: plain(*args, radius),
             sample, tol, bound_times(h, w, c, x.element_size(), out_bytes))
 
 
@@ -596,7 +635,18 @@ PHASE_KERNELS = {
     ("kitti_keep_res", torch.bfloat16): ("dcn_sample_onehot",),
     ("mot_fix_short", torch.float32): ("dcn_sample", "dcn_sample_tap"),
     ("mot_fix_short", torch.bfloat16): ("dcn_sample_onehot",),
+    # slice 13's widths: DLA-169 (T1 on a bf16 x only on its 128-channel
+    # layers, as the bf16 hybrid gives it) and ResDCN's unclamped neck
+    ("dla169", torch.float32): ("dcn_sample", "dcn_sample_tap"),
+    ("dla169", torch.bfloat16): ("dcn_sample", "dcn_sample_onehot",
+                                 "dcn_backward"),
+    ("resdcn18", torch.float32): ("dcn_sample",),
+    ("resdcn18", torch.bfloat16): ("dcn_sample",),
+    ("resdcn101", torch.float32): ("dcn_sample",),
+    ("resdcn101", torch.bfloat16): ("dcn_sample",),
 }
+# the clamp radius of each model's layers in the kernel phase
+PHASE_RADIUS = {"resdcn18": GATHER_RADIUS, "resdcn101": GATHER_RADIUS}
 
 
 def kernel_phase():
@@ -608,7 +658,10 @@ def kernel_phase():
     offsets past the clamp, and on a bf16 x (the recipes' trunk) with
     'trained' offsets (T5, ``dcn_backward``, on the MOT shapes, also on a
     bf16 x past the clamp; ``backward_row``; its unclamped route once, at
-    radius -1 on the largest MOT layer); the bitwise checks at every
+    radius -1 on the largest MOT layer), and the layer shapes of DLA-169
+    (T1, T2 on a float32 x; T1 on its 128-channel layers, T4 and T5 on a
+    bf16 x) and of ResDCN's neck (T1 unclamped, both dtypes); the bitwise
+    checks at every
     float32 MOT case; times and bounds per call, T2 with the GEMM that
     reads its patches, and each kernel's plan."""
     rng = np.random.RandomState(SEED)
@@ -627,7 +680,10 @@ def kernel_phase():
                                                       torch.bfloat16)]
     cases += [(shape, "trained", dtype, model)
               for model, layers in (("kitti_keep_res", KITTI_KEEP_RES_LAYERS),
-                                    ("mot_fix_short", MOT_FIX_SHORT_LAYERS))
+                                    ("mot_fix_short", MOT_FIX_SHORT_LAYERS),
+                                    ("dla169", DLA169_LAYERS),
+                                    ("resdcn18", RESDCN18_LAYERS),
+                                    ("resdcn101", RESDCN101_FIRST))
               for dtype in (torch.float32, torch.bfloat16)
               for shape in layers]
     for (h, w, c, cout, count), regime, dtype, model in cases:
@@ -642,9 +698,13 @@ def kernel_phase():
         bias = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)
                                 ).to(dev)
         f32 = dtype == torch.float32
+        radius = PHASE_RADIUS.get(model, RADIUS)
         if f32 and model == "mot":
             bitwise_checks(x, offsets, mask, weight, bias, (h, w, c, cout))
         for name in PHASE_KERNELS[(model, dtype)]:
+            if (model == "dla169" and not f32 and name == "dcn_sample"
+                    and c > HYBRID_CM_CHANNELS):
+                continue
             if (not f32 and name == "dcn_fused"
                     and (h, w, c, cout, count) != LAYERS[0]):
                 continue
@@ -662,7 +722,7 @@ def kernel_phase():
                 rows.append(row)
                 continue
             kernel, plain, library, tol_rel, (t_bytes, t_ffma, t_ops) = (
-                kernel_calls(name, x, offsets, mask, weight, bias))
+                kernel_calls(name, x, offsets, mask, weight, bias, radius))
             got = kernel()
             torch.cuda.synchronize()
             ref = plain()
@@ -676,7 +736,7 @@ def kernel_phase():
                    "H": h, "W": w, "C": c,
                    "Cout": cout, "count": count, "regime": regime,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "radius": RADIUS,
+                   "radius": radius,
                    "kernel_ms": graph_times(kernel),
                    "kernel_call_ms": cuda_times(kernel),
                    "plain_ms": graph_times(plain, per_graph=5),
@@ -711,6 +771,333 @@ def kernel_phase():
             emit(row)
             rows.append(row)
     return rows
+
+
+# ---- slice 13: the other model families --------------------------------------
+
+ARCH_FRAMES = 10
+ARCH_TRAIN_ITERS = 3
+# the detection families through create_model -> forward -> detect, each
+# held against itself with every DCN through its plain version: the kernel
+# phase's tolerances (float32 1e-5, bf16 one step at the top of the range),
+# relative to each head's max|plain|
+DETECTION_FAMILIES = (
+    ("res_18", {}), ("res_101", {}), ("resdcn_18", {}), ("resdcn_101", {}),
+    ("dlav0_34", {}),
+    ("generic", dict(backbone="mobilenet", neck="msraup",
+                     msra_outchannel=64)),
+    ("generic", dict(backbone="resnet", num_layers=18, neck="dlaup",
+                     dla_node="dcn")),
+)
+FAMILY_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# the whole network's heads against the plain-DCN network, relative to the
+# largest head value: the layers' differences pass through the rest of the
+# network (a bf16 step in one layer's output moves the next layer's input)
+NETWORK_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
+ARCH_TOP_K = 10                # top scores a family's row prints
+
+
+def normalized_input(frame, cfg, device):
+    """A uint8 BGR frame as ``Detector.pre_process`` gives it to the
+    network at fix_res: [1, input_h, input_w, 3] float32, normalized."""
+    h, w = frame.shape[:2]
+    c = np.array([w / 2.0, h / 2.0], np.float32)
+    warped = warp_affine_separable(
+        torch.as_tensor(frame, device=device)[None],
+        separable_inverse_tf(c, max(h, w) * 1.0, cfg.input_w, cfg.input_h),
+        cfg.input_h, cfg.input_w)
+    mean = torch.tensor(deft_model.MEAN, device=device)
+    std = torch.tensor(deft_model.STD, device=device)
+    return (warped / 255.0 - mean) / std
+
+
+@contextlib.contextmanager
+def layer_checks(model, dtype):
+    """Meanwhile every DCNv2 layer's output is held against the same
+    layer on the same input with its kernel's plain version (``plain_dcns``),
+    within ``FAMILY_TOL[dtype]`` of max|plain|; yields the list of each
+    call's (layer shape, error relative to max|plain|)."""
+    seen = []
+
+    def hook(mod, args, out):
+        with plain_dcns():
+            ref = mod.forward(*args)           # not through the hooks
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        shape = (tuple(args[0].shape[2:]), args[0].shape[1], out.shape[1])
+        if not err <= FAMILY_TOL[dtype] * top:
+            raise AssertionError(f"DCNv2 {shape} {dtype} off its plain "
+                                 f"version by {err} (max {top})")
+        seen.append((shape, err / max(top, 1e-30)))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, DCNv2)]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def plain_dcns():
+    """Every DCNv2 layer meanwhile samples through the plain version of its
+    kernel, on the card too (the families' reference)."""
+    plain = {cuda_dcn.deform_sample: cuda_dcn.deform_sample_reference,
+             cuda_dcn.deform_sample_tap: cuda_dcn.deform_sample_tap_reference,
+             cuda_dcn.deform_sample_onehot:
+                 cuda_dcn.deform_sample_onehot_reference}
+    chosen = DCNv2._function
+
+    def function(self, *args):
+        fn = chosen(self, *args)
+        if isinstance(fn, functools.partial):       # deform_conv_rounded
+            return functools.partial(fn.func, plain[fn.args[0]])
+        return functools.partial(fn, sample=plain[dcn_module._SAMPLERS[fn]])
+
+    DCNv2._function = function
+    try:
+        yield
+    finally:
+        DCNv2._function = chosen
+
+
+def arch_run(name, det, frames, per_frame, chunk=None):
+    """One tracking path of the archs phase: ``Detector.run`` (``chunk``
+    None) or a ``PipelinedRunner`` at ``chunk``.  Asserts ``per_frame``
+    {(kernel, x dtype): launches} per dispatched frame and nothing else,
+    and finite tracks; returns its row: wall ms/frame (the frames after
+    the first; a runner's whole sequence), device ms/frame over three more
+    frames under ``torch.profiler``, launches and detections per frame."""
+    sync = torch.cuda.synchronize
+    counts = counted_detections(det)
+    if chunk is None:
+        run_ms = []
+        step = timed(det.run, sync, run_ms)
+        sync()
+        reset_launches()
+        with sampled_dtypes() as seen:
+            seq = [step(frame) for frame in frames]
+        count = launches()
+        ms = statistics.median(run_ms[1:])
+
+        def again():
+            for frame in frames[1:4]:
+                det.run(frame)
+    else:
+        runner = PipelinedRunner(det, depth=3, chunk=chunk)
+        runner.track_sequence(frames[: 2 * chunk])          # warm up
+        runner.reset()
+        counts.clear()
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        with sampled_dtypes() as seen:
+            seq = runner.track_sequence(frames)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        count = launches()
+
+        def again():
+            runner.reset()
+            runner.track_sequence(frames[:3])
+    want = {key: n * len(frames) for key, n in per_frame.items()}
+    want_count = dict.fromkeys(KERNELS, 0)
+    want_count.update({k: n for (k, _), n in want.items()})
+    if count != want_count or dict(seen) != want:
+        raise AssertionError(f"archs {name}: launches {count} on x "
+                             f"{dict(seen)}, expected {want}")
+    n_tracks = check_tracks(seq, 0)
+    device_ms, _ = device_profile(again, 3)
+    cfg = det.cfg
+    return {"phase": "archs", "path": name,
+            "config": f"{cfg.arch} {cfg.dla_node} dcn_impl={cfg.dcn_impl} "
+                      f"{cfg.compute_dtype} {cfg.input_h}x{cfg.input_w} "
+                      f"K={cfg.K} max_object={cfg.max_object}",
+            "frames": len(frames), "frame_size": list(frames[0].shape[:2]),
+            "ms_per_frame": ms, "device_ms_per_frame": device_ms,
+            "launches": count,
+            "launches_per_frame": {f"{k} {d}": n for (k, d), n
+                                   in per_frame.items()},
+            "detections_to_tracker_per_frame": counts[: len(frames)],
+            "tracks_per_frame_median": statistics.median(n_tracks)}
+
+
+def family_run(arch, kw, frame, dtype, weights=None):
+    """One detection family at ``dtype`` through ``create_model`` ->
+    ``forward`` -> ``detect`` on one 544x960 frame, with ``weights``, or
+    else seeded ones with the offset convs randomized and the heatmap
+    raised (``raise_class_heatmaps``, at float32: a bf16 head's seeded
+    logits are all one value).  Asserts T1 on every DCNv2 layer (the
+    necks' gather DCNs, at either dtype) and nothing else; holds each
+    layer's output against the same layer with its kernel's plain version
+    (``layer_checks``, ``FAMILY_TOL``) and every head of the forward
+    against the same model with every DCN through its plain version
+    (``NETWORK_TOL``); returns (its row: launches per frame, device ms per
+    frame, the top scores and the largest errors; the weights)."""
+    cfg = mot_config(arch=arch, compute_dtype=dtype, **kw)
+    model = create_model(arch, cfg, "cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    x = normalized_input(frame, cfg, "cuda")
+    n_dcn = sum(isinstance(m, DCNv2) for m in model.modules())
+    with torch.no_grad():
+        if weights is not None:
+            model.load_state_dict(weights)
+        else:
+            if n_dcn:
+                randomize_offsets(model, x, gen)
+            # the seeded MobileNetV2's features decay to ~1e-11 by the
+            # neck's end: read the heatmap's spread with its bias at 0
+            raise_class_heatmaps(model, x)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model(x)                                   # the library's first picks
+        torch.cuda.synchronize()
+        reset_launches()
+        with sampled_dtypes() as seen:
+            outputs, maps = model(x)
+            dets = model.detect(x, k=cfg.K)
+            torch.cuda.synchronize()
+        count = launches()
+        want = {("dcn_sample", dtype): 2 * n_dcn} if n_dcn else {}
+        if dict(seen) != want or sum(count.values()) != 2 * n_dcn:
+            raise AssertionError(f"{arch} {kw} {dtype}: launches {count} on "
+                                 f"x {dict(seen)}, expected {want}")
+        with layer_checks(model, dtype) as layers:
+            model(x)
+        with plain_dcns():
+            plain, _ = model(x)
+        top = max(ref.abs().max().item() for ref in plain.values())
+        worst = 0.0
+        for head, out in outputs.items():
+            ref = plain[head]
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{arch} {kw} {dtype}: head {head} "
+                                     f"{tuple(out.shape)} not finite")
+            worst = max(worst, (out - ref).abs().max().item() / top)
+        if not worst <= NETWORK_TOL[dtype]:
+            raise AssertionError(f"{arch} {kw} {dtype}: heads off the plain "
+                                 f"DCNs' by {worst} of their max {top}")
+        device_ms, _ = device_profile(lambda: [model.detect(x, k=cfg.K)
+                                               for _ in range(3)], 3)
+    scores = dets["scores"][0]
+    if not torch.isfinite(scores).all() or scores.shape != (cfg.K,):
+        raise AssertionError(f"{arch} {kw} {dtype}: scores {scores}")
+    return {"phase": "archs", "family": arch, "options": kw, "dtype": dtype,
+            "model": type(model).__name__, "input": [cfg.input_h,
+                                                      cfg.input_w],
+            "dcn_layers": n_dcn, "feature_maps": len(maps),
+            "launches": count,
+            "launches_per_frame": {f"{k} {d}": n // 2 for (k, d), n
+                                   in dict(seen).items()},
+            "device_ms_per_frame": device_ms,
+            "top_scores": [round(float(v), 6)
+                           for v in scores[:ARCH_TOP_K].cpu()],
+            "layer_max_rel_err_to_plain": max((e for _, e in layers),
+                                              default=0.0),
+            "layer_tolerance": FAMILY_TOL[dtype],
+            "heads_max_rel_err_to_plain": worst,
+            "heads_tolerance": NETWORK_TOL[dtype]}, weights
+
+
+def archs_phase(data: Path) -> dict:
+    """Slice 13's paths at full width with seeded random weights.
+
+    * DLA-169 (``--arch dla_169``) tracking MOT at 544x960 through
+      ``Detector.run`` on 10 synthetic 1080p frames at float32 (hybrid:
+      16 T1 per frame) and bf16 (hybrid: T1 on the five 128-channel layers,
+      T4 on the other 11), and through the ``PipelinedRunner`` at chunk 1
+      (``dcn_impl="pallas"``, 16 T2 per frame); the float32 card forward
+      held against the CPU's (``reference_check``);
+    * the MOT recipe's ``train.py`` line with ``--arch dla_169`` (bf16,
+      batch 4, 3 steps, the in-process loader, ``--load_model`` of the
+      tracking weights) under ``--profile``: 128 T4 and 128 T5 per step;
+    * DLA-34 with ``--dla_node gcn`` through ``Detector.run``: no DCN, no
+      launch;
+    * every detection family of ``DETECTION_FAMILIES`` at float32 and bf16
+      (``family_run``).
+
+    Returns {path: launches}."""
+    frames = list(synthetic_frames(ARCH_FRAMES))
+    cfg = mot_config(arch="dla_169")
+    det, n_dcn, offset_q = prepared_detector(cfg, frames, "cuda",
+                                             DLA169_LAYERS)
+    ref_rel = reference_check(det, cfg)
+    weights = {k: v.detach().clone() for k, v in det.model.state_dict().items()}
+    bf16_layers = Counter(bf16_hybrid_kernel("mot", m.weight.shape[1])
+                          for m in det.model.modules()
+                          if isinstance(m, DCNv2))
+    out = {}
+    rows = []
+    for name, dtype, impl, chunk in (
+            ("Detector.run DLA-169 float32", "float32", "hybrid", None),
+            ("Detector.run DLA-169 bf16", "bfloat16", "hybrid", None),
+            ("PipelinedRunner chunk 1 DLA-169", "float32", "pallas", 1)):
+        if (dtype, impl) != ("float32", "hybrid"):
+            det = Detector(cfg.replace(compute_dtype=dtype, dcn_impl=impl),
+                           weights, device="cuda")
+        if impl == "pallas":
+            per_frame = {("dcn_sample_tap", dtype): n_dcn}
+        elif dtype == "float32":
+            per_frame = {("dcn_sample", dtype): n_dcn}
+        else:
+            per_frame = {(k, dtype): n for k, n in bf16_layers.items()}
+        row = arch_run(name, det, frames, per_frame, chunk)
+        if impl == "hybrid" and dtype == "float32":
+            row.update({"card_vs_cpu_max_rel_err": ref_rel,
+                        "offset_abs_q01_q50_q99": offset_q})
+        emit(row)
+        rows.append(row)
+        out[name] = row["launches"]
+        del det
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    weights_file = TRAIN_DIR / "weights" / "dla169" / "model.pth"
+    weights_file.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"epoch": 0, "state_dict": {k: v.cpu() for k, v
+                                           in weights.items()}}, weights_file)
+    del weights
+    (train_argv,) = [a for (r, script, _), a in recipe_lines().items()
+                     if r == "mot" and script == "train.py"]
+    line = with_flags(train_argv, arch="dla_169", data_dir=data.parent,
+                      exp_dir="exp_archs", num_epochs=1,
+                      num_iters=ARCH_TRAIN_ITERS, num_workers=0,
+                      load_model=weights_file)
+    per_step = n_dcn * parse_config(line)[0].batch_size * 2
+    cwd = os.getcwd()
+    os.chdir(TRAIN_DIR)
+    try:
+        row = train_line("mot", line, per_step, ARCH_TRAIN_ITERS,
+                         profile=TRAIN_DIR / "profile" / "dla169")
+    finally:
+        os.chdir(cwd)
+    row["phase"] = "archs"
+    row["path"] = "deft_tpu_torch.train DLA-169 bf16"
+    emit(row)
+    out[row["path"]] = row["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gcn = mot_config(dla_node="gcn")
+    det = Detector(gcn, device="cuda")
+    if any(isinstance(m, DCNv2) for m in det.model.modules()):
+        raise AssertionError("a gcn DLA-34 has DCNv2 layers")
+    raise_heatmap(det.model, det.pre_process(frames[0])[0])
+    row = arch_run("Detector.run DLA-34 gcn", det, frames, {})
+    emit(row)
+    out[row["path"]] = row["launches"]
+    del det
+
+    for arch, kw in DETECTION_FAMILIES:
+        weights = None
+        for dtype in ("float32", "bfloat16"):
+            row, weights = family_run(arch, kw, frames[0], dtype, weights)
+            emit(row)
+            out[f"{arch} {kw} {dtype}, forward + detect"] = row["launches"]
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- the main path ----------------------------------------------------------
@@ -2815,7 +3202,8 @@ def sums_entry(sums):
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
                  public_launches, cli_launches, train_launches,
-                 recipe_launches, geometry_rows, ddp_launches):
+                 recipe_launches, geometry_rows, ddp_launches,
+                 archs_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -2836,7 +3224,13 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     launches to T1, T2 and T4 (``launches_by_path``), and those kernels
     their sums over the layers of a keep_res KITTI frame and a fix_short
     MOT frame (T1 and T2 on a float32 x, T4 on a bf16 one); the ddp
-    phase's NCCL run adds its T4 and T5 launches."""
+    phase's NCCL run adds its T4 and T5 launches.  The archs phase adds
+    the launches of its paths (DLA-169 tracking and training, the
+    detection families) and its layer sums: DLA-169's per 544x960 frame
+    (T1 and T2 on a float32 x, T4 and T5 on a bf16 one, T1 and T4 on the
+    layers the bf16 hybrid gives each) and ResDCN's unclamped neck (T1,
+    ResDCN-18's three layers per frame and ResDCN-101's 2048-channel
+    one)."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -2905,6 +3299,12 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
         if name in ("dcn_sample_onehot", "dcn_backward"):
             count += ddp_launches[name]
             path_name += "; the ddp phase (train_rank, NCCL, world 1)"
+        arch_paths = {f"archs phase, {path}": n[name]
+                      for path, n in archs_launches.items() if n[name]}
+        if arch_paths:
+            count += sum(arch_paths.values())
+            path_name += ("; the archs phase (DLA-169 tracking and training, "
+                          "the detection families' gather DCNs)")
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": count,
@@ -3038,6 +3438,26 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                 r["with_gemm_ms"] * r["count"] for r in mine
                 if r["regime"] == "trained" and r["dtype"] == "float32"
                 and r["model"] == "mot")
+        if arch_paths:
+            entry.setdefault("launches_by_path", {}).update(arch_paths)
+        dla169 = [r for r in mine if r["model"] == "dla169"]
+        if dla169:
+            entry["dla169_per_frame"] = {
+                dtype: sums_entry(per_frame_sums(dla169, dtype))
+                for dtype in ("float32", "bfloat16")
+                if any(r["dtype"] == dtype for r in dla169)}
+        if name in ("dcn_sample", "dcn_sample_onehot"):
+            entry["dla169_bf16_hybrid_layers_per_frame"] = sums_entry(
+                per_frame_sums([r for r in dla169 if bf16_hybrid_kernel(
+                    "mot", r["C"]) == name], "bfloat16"))
+        if name == "dcn_sample":
+            for model, key in (("resdcn18", "resdcn18_unclamped_per_frame"),
+                               ("resdcn101",
+                                "resdcn101_2048_channel_layer")):
+                entry[key] = {
+                    dtype: sums_entry(per_frame_sums(
+                        [r for r in mine if r["model"] == model], dtype))
+                    for dtype in ("float32", "bfloat16")}
         entries.append(entry)
     return {"kernels": entries}
 
@@ -3097,6 +3517,8 @@ def main() -> int:
     lap("recipes")
     geometry_rows, _ = geometry_phase()
     lap("geometry")
+    archs_launches = archs_phase(CLI_DIR / "data" / "mot17")
+    lap("archs")
     emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
@@ -3105,7 +3527,7 @@ def main() -> int:
                       nuscenes_launches, kitti_launches,
                       kitti_runner_launches, public_launches, cli_launches,
                       train_launches, recipe_launches, geometry_rows,
-                      ddp_launches))
+                      ddp_launches, archs_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

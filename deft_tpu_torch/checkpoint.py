@@ -12,6 +12,15 @@ modules carry the reference's key names, so its tensors load as they are:
   matching shape loads, a mis-shaped or missing key keeps the seeded value,
   an unexpected key is dropped, each with a message.
 
+A bare imagenet trunk (a ``dla<d>`` file of ``base_layer.*`` keys, or a
+torchvision ``resnet<d>`` of ``conv1`` + ``layer*`` keys without neck or
+heads; ``is_imagenet_backbone_sd``, as ``deft_tpu/train/torch_convert.py::
+is_imagenet_backbone_sd`` detects it) loads into the trunk alone
+(``trunk_state_dict``): its keys move under the module's trunk prefix
+(``base.`` of a DEFTNet, ``backbone.`` of a GenericNet, none for PoseResNet
+and PoseResDCN), its classifier is left out, and everything else keeps its
+seeded value.  ``load_model`` is that route for ``cfg.load_model``.
+
 A path without the ``.pth`` suffix, as the recipes write ``--load_model
 exp/tracking/mot17_train/model_last``, names the port trainer's
 ``model_last.pth`` where that file exists (``resolve_pth``).  The JAX
@@ -100,3 +109,42 @@ def load_tolerant(module: nn.Module, sd: Dict[str, torch.Tensor]
         print(f"checkpoint: dropping unexpected key {key}")
     module.load_state_dict(take, strict=False)
     return TolerantLoad(list(take), kept, dropped)
+
+
+# the trunk key that locates a module's trunk prefix, per imagenet layout
+_TRUNK_ANCHORS = ("base_layer.0.weight", "layer1.0.conv1.weight")
+
+
+def is_imagenet_backbone_sd(sd: Dict[str, torch.Tensor]) -> bool:
+    """A bare imagenet trunk ``state_dict``: DLA's (``base_layer.*``
+    without the ``base.`` prefix) or torchvision ResNet's (``conv1`` and
+    ``layer1`` without deconv or head keys)."""
+    if "base_layer.0.weight" in sd and "base.base_layer.0.weight" not in sd:
+        return True
+    return ("conv1.weight" in sd and "layer1.0.conv1.weight" in sd
+            and not any(k.startswith("deconv_layers") for k in sd)
+            and "hm.0.weight" not in sd and "hm.weight" not in sd)
+
+
+def trunk_state_dict(sd: Dict[str, torch.Tensor], module: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """An imagenet trunk's keys under ``module``'s trunk prefix, without
+    the classifier (``fc.*``); raises ``ValueError`` where ``module`` has
+    no trunk of that layout."""
+    anchor = next(a for a in _TRUNK_ANCHORS if a in sd)
+    own = [k for k in module.state_dict() if k.endswith(anchor)]
+    if not own:
+        raise ValueError(f"an imagenet trunk with {anchor} has no place in "
+                         f"{type(module).__name__}")
+    prefix = min(own, key=len)[: -len(anchor)]
+    return OrderedDict((prefix + k, v) for k, v in sd.items()
+                       if not k.startswith("fc."))
+
+
+def load_model(module: nn.Module, path: str) -> TolerantLoad:
+    """``cfg.load_model``'s file overlaid onto ``module`` (``load_tolerant``),
+    an imagenet trunk through ``trunk_state_dict``."""
+    sd = load_torch_state_dict(path)
+    if is_imagenet_backbone_sd(sd):
+        sd = trunk_state_dict(sd, module)
+    return load_tolerant(module, sd)

@@ -49,7 +49,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from deft_tpu_torch.checkpoint import load_tolerant, load_torch_state_dict
+from deft_tpu_torch.checkpoint import load_model, load_torch_state_dict
 from deft_tpu_torch.config import Config
 from deft_tpu_torch.data.datasets import (
     NUSCENES_TRACKING_CLASSES,
@@ -58,7 +58,9 @@ from deft_tpu_torch.data.datasets import (
 from deft_tpu_torch.inference.ddd import nms_greedy
 from deft_tpu_torch.inference.geometry import camera_box_to_global
 from deft_tpu_torch.inference.post_process import generic_post_process
-from deft_tpu_torch.models.factory import create_model, resolve_device
+from deft_tpu_torch.data.image_io import imread
+from deft_tpu_torch.models.factory import (create_model, require_deft_arch,
+                                           resolve_device)
 from deft_tpu_torch.ops.affine import get_affine_transform
 from deft_tpu_torch.ops.warp import (resize_linear, separable_inverse_tf,
                                      warp_affine_separable)
@@ -141,6 +143,7 @@ class Detector:
             raise NotImplementedError(f"dataset {cfg.dataset!r} {_LATER}")
         if cfg.debug:
             raise NotImplementedError(f"debug {_LATER}")
+        require_deft_arch(cfg.arch, "Detector")
         self.cfg = cfg
         self.dataset = cfg.dataset
         self.device = resolve_device(device)
@@ -149,8 +152,7 @@ class Detector:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         elif cfg.load_model:
-            self.load_report = load_tolerant(
-                self.model, load_torch_state_dict(cfg.load_model))
+            self.load_report = load_model(self.model, cfg.load_model)
         if cfg.lstm and motion_state_dict is None and cfg.load_model_traj:
             motion_state_dict = load_torch_state_dict(cfg.load_model_traj)
         self.embed_dim = self.model.embed_dim
@@ -266,12 +268,15 @@ class Detector:
 
     def _prepare(self, image_or_frame, meta):
         """A frame as ``run`` takes it -> (normalized [1, H, W, 3] on the
-        device, meta).  The prefetched form keeps its own meta; public
-        detections given in ``meta`` pass into it."""
+        device, meta).  A path is read with ``image_io.imread`` (BGR, as
+        the JAX ``run`` reads it with ``cv2.imread``); the prefetched form
+        keeps its own meta; public detections given in ``meta`` pass into
+        it."""
         if isinstance(image_or_frame, str):
-            raise NotImplementedError(
-                "reading image files needs an image decoder; pass the "
-                "decoded frame")
+            image = imread(image_or_frame)
+            if image is None:
+                raise FileNotFoundError(f"cannot read image {image_or_frame}")
+            return self.pre_process(image, meta)
         if not isinstance(image_or_frame, dict):
             return self.pre_process(image_or_frame, meta)
         images, frame_meta = image_or_frame["images"], image_or_frame["meta"]
@@ -322,7 +327,8 @@ class Detector:
         """Full frame step -> list of online tracks (reference
         detector.py:112-344).
 
-        ``image_or_frame`` is a decoded [H, W, 3] uint8 frame, or the JAX
+        ``image_or_frame`` is a decoded [H, W, 3] uint8 frame, an image
+        file's path, or the JAX
         ``run``'s prefetched form ``{"images": [1, H, W, 3] normalized,
         "meta": {...}}``; ``meta`` may hold the camera's ``calib`` and the
         frame's public detections ``cur_dets``; nuScenes needs the frame's

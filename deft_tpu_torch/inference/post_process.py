@@ -5,7 +5,8 @@ Output-grid detections -> original-image coordinates: one inverse-affine
 matmul over all K detections, python dicts only for the thresholded
 survivors.  With the 3-D heads and a calibration, alpha comes from the 8-bin
 rot head and ``loc`` / ``rot_y`` from unprojecting the amodal centre at the
-decoded depth.  Keypoints (``hps``) are not ported.
+decoded depth.  Keypoints (``hps``, [J*2] per detection) go back through
+the same inverse affine (``deft_tpu/inference/post_process.py:64-94``).
 """
 
 from __future__ import annotations
@@ -29,9 +30,6 @@ def generic_post_process(dets: Dict[str, np.ndarray], centers, scales,
     """
     if "scores" not in dets:
         return [[]]
-    if "hps" in dets:
-        raise NotImplementedError(
-            "keypoint post-processing is not ported yet (ROADMAP.md, queue A)")
     ret = []
     has_ddd = "rot" in dets and "dep" in dets and "dim" in dets
     for i in range(len(dets["scores"])):
@@ -65,6 +63,12 @@ def generic_post_process(dets: Dict[str, np.ndarray], centers, scales,
                 np.asarray(dets["bboxes"][i][:n], np.float32).reshape(-1, 2),
                 trans,
             ).reshape(-1, 4)
+        hps = None
+        if "hps" in dets:
+            hps = transform_preds_with_trans(
+                np.asarray(dets["hps"][i][:n], np.float32).reshape(-1, 2),
+                trans,
+            ).reshape(n, -1)
         alphas = get_alpha(np.asarray(dets["rot"][i][:n])) if "rot" in dets \
             else None
         amodel_ct = None
@@ -88,6 +92,8 @@ def generic_post_process(dets: Dict[str, np.ndarray], centers, scales,
                 item["tracking"] = tracking[j]
             if bboxes is not None:
                 item["bbox"] = bboxes[j]
+            if hps is not None:
+                item["hps"] = hps[j]
             if "dep" in dets:
                 item["dep"] = dets["dep"][i][j]
             if "dim" in dets:

@@ -7,6 +7,8 @@ BatchNorm on embeddings, and the pairwise 1x1-conv stack
 [2E -> 512 -> 256 -> 128 -> 64 -> 1].  The computation follows the JAX
 package:
 
+* the selectors' input widths are the trunk's (``in_channels``; flax
+  infers them), DLA-34's by default;
 * embeddings are border-padded bilinear samples of the ReLU'd selector maps
   at the object centers, concatenated to E = 416 dims (MOT, KITTI) or 704
   (nuScenes, ``selector_out_channels``);
@@ -38,6 +40,8 @@ import torch.nn.functional as F
 from deft_tpu_torch.models.layers import Conv2d, batch_norm, train_batch_norm
 from deft_tpu_torch.ops.sampling import grid_sample_points
 
+# DLA-34's 13 selector input widths; other trunks pass theirs
+# (``models/dla.py::selector_widths``)
 SELECTOR_INPUT_CHANNELS = (16, 32, 64, 128, 256, 512, 64, 128, 256, 512,
                            64, 64, 64)
 SELECTOR_OUT_2D = (32,) * 13
@@ -62,7 +66,8 @@ def _bn_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 class AFE(nn.Module):
     def __init__(self, max_object: int = 100, align_corners: bool = True,
-                 dataset: str = "mot"):
+                 dataset: str = "mot",
+                 in_channels: Sequence[int] = SELECTOR_INPUT_CHANNELS):
         super().__init__()
         outs = selector_out_channels(dataset)
         self.max_object = max_object
@@ -70,7 +75,7 @@ class AFE(nn.Module):
         self.embed_dim = int(sum(outs))
         self.selector = nn.ModuleList(
             Conv2d(cin, cout, 3, padding=1, bias=True)
-            for cin, cout in zip(SELECTOR_INPUT_CHANNELS, outs))
+            for cin, cout in zip(in_channels, outs))
         self.stacker2_bn = batch_norm(self.embed_dim)
         # reference ModuleList [conv, bn, relu] * 3 + [conv, relu] * 2
         layers = []

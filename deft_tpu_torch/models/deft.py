@@ -52,7 +52,7 @@ import torch
 import torch.nn as nn
 
 from deft_tpu_torch.models.afe import AFE
-from deft_tpu_torch.models.dla import DLASeg, NodeSpec
+from deft_tpu_torch.models.dla import DLASeg, NodeSpec, selector_widths
 from deft_tpu_torch.models.layers import Conv2d
 from deft_tpu_torch.ops.decode import clamped_sigmoid, generic_decode
 from deft_tpu_torch.ops.warp import hat_matrix, warp_affine_with
@@ -123,15 +123,19 @@ class HeadTower(nn.Sequential):
 
 
 class DEFTNet(DLASeg):
-    """Trunk + heads + AFE (reference ``DLASeg`` with ``opt.AFE``)."""
+    """Trunk + heads + AFE (reference ``DLASeg`` with ``opt.AFE``) at the
+    DLA plan ``DLA_PLANS[dla_depth]`` (``deft_tpu/models/deft.py:113-131``):
+    the head towers take ``channels[first_level]`` channels and the AFE's
+    selectors the trunk's 13 widths."""
 
     def __init__(self, heads: Dict[str, int], head_convs: Dict[str, Sequence[int]],
                  spec: NodeSpec, max_object: int = 100,
                  prior_bias: float = -4.6, head_kernel: int = 3,
                  align_corners: bool = True, dataset: str = "mot",
                  depth_scale: float = 1.0,
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__(spec)
+                 compute_dtype: torch.dtype = torch.float32,
+                 dla_depth: str = "34"):
+        super().__init__(spec, depth=dla_depth)
         self.compute_dtype = compute_dtype
         self.heads = dict(heads)
         last_channel = self.base.channels[self.first_level]
@@ -139,7 +143,9 @@ class DEFTNet(DLASeg):
             setattr(self, h, HeadTower(
                 last_channel, c, tuple(head_convs.get(h, ())), head_kernel,
                 prior_bias if "hm" in h else None))
-        self.AFE = AFE(max_object, align_corners, dataset)
+        self.AFE = AFE(max_object, align_corners, dataset,
+                       selector_widths(self.base.channels, self.first_level,
+                                       self.last_level))
         self.max_object = max_object
         self.depth_scale = depth_scale
         # input normalization constants, on the model's device

@@ -152,14 +152,15 @@ def batch_norm(channels: int) -> BatchNorm2d:
 
 class ConvBNReLU(nn.Sequential):
     """Conv -> BN -> optional ReLU (reference ``dla.py:40-44`` pattern);
-    children ``0`` (conv), ``1`` (bn), ``2`` (relu)."""
+    children ``0`` (conv), ``1`` (bn), ``2`` (relu).  ``groups`` is torch's
+    (the grouped BottleneckX conv, the depthwise MobileNetV2 conv)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 dilation: int = 1, relu: bool = True):
+                 dilation: int = 1, relu: bool = True, groups: int = 1):
         layers = [
             Conv2d(cin, cout, kernel, stride=stride,
                    padding=torch_pad(kernel, dilation), dilation=dilation,
-                   bias=False),
+                   groups=groups, bias=False),
             batch_norm(cout),
         ]
         if relu:
@@ -187,3 +188,18 @@ def bilinear_upsampler(channels: int, factor: int) -> ConvTranspose2d:
     with torch.no_grad():
         up.weight.copy_(bilinear_upsample_kernel(k).expand(channels, 1, k, k))
     return up
+
+
+def max_pool_ninf(window: int = 3, stride: int = 2) -> nn.MaxPool2d:
+    """torch's ``MaxPool2d`` padded by ``window // 2``, whose pad is -inf:
+    the JAX ResNet stem's max-pool over a ``-inf`` pad
+    (``deft_tpu/models/backbones.py:96``)."""
+    return nn.MaxPool2d(window, stride, padding=window // 2)
+
+
+def full_upsampler(cin: int, cout: int) -> ConvTranspose2d:
+    """Dense transposed conv, kernel 4, stride 2, padding 1, no bias: the
+    reference's deconv of PoseResNet / PoseResDCN and MSRAUp
+    (``deft_tpu/models/necks.py:116-129``, whose flax padding (2, 2) pads
+    the underlying dilated conv by k - 1 - p)."""
+    return ConvTranspose2d(cin, cout, 4, stride=2, padding=1, bias=False)

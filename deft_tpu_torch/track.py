@@ -23,8 +23,9 @@ submission.
 
 Scoring MOT is ``tools/eval_mot.py::evaluate_mot_dir`` on the written
 directory, scoring KITTI ``tools/eval_kitti.py::evaluate_kitti_dir`` (numpy
-and scipy only).  Reading image files waits for a decoder in the port
-(ROADMAP.md, queue A): callers pass decoded uint8 BGR frames.
+and scipy only).  ``Detector.run`` reads an image path through
+``data/image_io.py``, so ``track_videos_detector`` takes paths as well as
+decoded uint8 BGR frames; the runner takes decoded frames.
 """
 
 from __future__ import annotations
@@ -113,8 +114,8 @@ def track_videos_detector(
         public_dets: Optional[Mapping[int, Sequence[dict]]] = None
 ) -> Dict[int, List[dict]]:
     """``track_videos`` through ``Detector.run``: trackers reset per
-    sequence, one ``run`` per frame.  A frame may be a decoded BGR frame or
-    ``run``'s prefetched ``{"images", "meta"}`` form."""
+    sequence, one ``run`` per frame.  A frame may be a decoded BGR frame,
+    an image path or ``run``'s prefetched ``{"images", "meta"}`` form."""
     results: Dict[int, List[dict]] = {}
     for _, frames in videos:
         detector.reset_tracking()

@@ -29,7 +29,9 @@ from typing import Optional
 
 import torch
 
-from deft_tpu_torch.checkpoint import load_checkpoint_blob, load_tolerant
+from deft_tpu_torch.checkpoint import (is_imagenet_backbone_sd,
+                                       load_checkpoint_blob, load_tolerant,
+                                       trunk_state_dict)
 from deft_tpu_torch.distributed import rank
 
 
@@ -78,6 +80,8 @@ def load_train_state(path: str, trainer) -> int:
     sd = blob.get("state_dict", blob)
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in sd.items()}
+    if is_imagenet_backbone_sd(sd):
+        sd = trunk_state_dict(sd, trainer.model)
     load_tolerant(trainer.model, sd)
     epoch = int(blob.get("epoch", 0))
     with torch.no_grad():

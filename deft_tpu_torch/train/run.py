@@ -130,13 +130,14 @@ def _train(cfg, extras, device, stats: Optional[dict]):
     from deft_tpu_torch import distributed
     from deft_tpu_torch.data.datasets import get_dataset
     from deft_tpu_torch.data.loader import DataLoader
-    from deft_tpu_torch.models.factory import create_model
+    from deft_tpu_torch.models.factory import create_model, require_deft_arch
     from deft_tpu_torch.train.checkpoint import (load_train_state,
                                                  save_checkpoint)
     from deft_tpu_torch.train.trainer import (Trainer, to_device,
                                               training_keys)
     from deft_tpu_torch.utils.logger import Logger
 
+    require_deft_arch(cfg.arch, "training")
     rank, world = distributed.rank(), distributed.world_size()
     # every rank draws the same augmentations in process (data/loader.py)
     np.random.seed(cfg.seed)

@@ -102,6 +102,10 @@ class Trainer:
     (module docstring).  ``model`` is a ``DEFTNet`` on ``device``."""
 
     def __init__(self, model: nn.Module, cfg, steps_per_epoch: int = 1000):
+        if not hasattr(model, "train_forward"):
+            raise ValueError(f"{type(model).__name__} has no train_forward: "
+                             "the trainer trains the DEFT tracker (--arch "
+                             "dla_<depth>)")
         self.model = model
         self.cfg = cfg
         self.steps_per_epoch = max(int(steps_per_epoch), 1)
