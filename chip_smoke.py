@@ -14,8 +14,8 @@ drives the main paths at full width (DLA-34 with DCNv2 neck, K=100,
 max_object=100, 50-slot rings) with seeded random weights:
 
 * slice 1, MOT17 tracking through ``Detector.run`` (544x960,
-  ``dcn_impl="hybrid"``, every DCNv2 layer through ``dcn_sample``) on 30
-  synthetic 1080x1920 frames;
+  ``dcn_impl="hybrid"``, every DCNv2 layer through ``dcn_sample``) on
+  ``FRAMES`` (18) synthetic 1080x1920 frames;
 * slice 2, the ``PipelinedRunner`` of ``test.py`` (chunk 1, depth 3) and of
   ``bench.py`` (chunk 4, ``frame_chunk_batched``) with
   ``dcn_impl="pallas"`` (every DCNv2 layer through ``dcn_sample_tap``,
@@ -23,10 +23,11 @@ max_object=100, 50-slot rings) with seeded random weights:
 * slice 4, nuScenes monocular 3-D tracking through ``track.py::
   track_nuscenes`` -> ``Detector.run_multi`` (``nuscenes_config()``: 448x800,
   3-D heads, 704-wide AFE, seven per-class trackers with the LSTM motion
-  model) on 10 samples of a synthetic six-camera rig of 900x1600 frames,
+  model) on ``NUSCENES_SAMPLES`` (6) samples of a synthetic six-camera rig
+  of 900x1600 frames,
   each sample's cameras as one batch;
 * slice 6, KITTI 2-D vehicle tracking (``kitti_config()``: 384x1280, three
-  classes, cars tracked) on 30 synthetic 375x1242 frames of the numpy
+  classes, cars tracked) on 18 synthetic 375x1242 frames of the numpy
   generator ``deft_tpu_torch/data/synthetic_kitti.py``, through
   ``track.py::track_videos_detector`` -> ``Detector.run`` (``dcn_impl=
   "hybrid"``) and through the ``PipelinedRunner`` at chunk 1 and chunk 4
@@ -70,17 +71,17 @@ max_object=100, 50-slot rings) with seeded random weights:
   loader, once through the one-process ``main`` and once as rank 0 of an
   NCCL group of world size 1 (``train.run.train_rank``), the first step's
   losses held together, rank 0's ``model_last.pth`` checked; and
-  test-time geometry (``geometry_phase``, last): 10 MOT frames through
+  test-time geometry (``geometry_phase``, last): 6 MOT frames through
   ``Detector.run`` under ``flip_test`` at float32 (T1 on both samples of
   every layer) and bf16 (T4), through the runner under ``flip_test`` at
-  chunk 4 (T2) and under ``--fix_short 544`` (544x1024), and 10 KITTI
+  chunk 4 (T2) and under ``--fix_short 544`` (544x1024), and 6 KITTI
   frames under ``keep_res`` (384x1248) through ``Detector.run`` and the
   runner at chunk 1 (host warp), and 3 nuScenes samples under
   ``flip_test`` through ``run_multi`` (the trunk at 12 camera images); T1,
   T2 and T4 also held at the keep_res KITTI and fix_short MOT layer shapes
   in the kernel phase;
 * slice 13, the other model families (``archs_phase``, last): DLA-169
-  (``--arch dla_169``) tracking 10 MOT frames through ``Detector.run`` at
+  (``--arch dla_169``) tracking 6 MOT frames through ``Detector.run`` at
   float32 (16 T1 per frame) and bf16 (T1 on its five 128-channel layers,
   T4 on the other 11) and through the runner at chunk 1 (16 T2), the MOT
   recipe's train line at ``--arch dla_169`` (bf16, batch 4, 3 steps,
@@ -93,6 +94,18 @@ max_object=100, 50-slot rings) with seeded random weights:
   activations and the heads against the plain-DCN network; T1, T2, T4 and
   T5 also held at the DLA-169 layer shapes and T1 at ResDCN's (radius -1)
   in the kernel phase;
+* slice 14, the bench entry point (``bench_phase``, last): ``python -m
+  deft_tpu_torch.bench`` in processes of its own with ``DEFT_USE_NATIVE=1``
+  (the cascade's assignment through the C++ lapjv of
+  ``deft_tpu_torch/native``), MOT17 through the runner at chunk 4, depth
+  2 on the bench's synthetic 1080x1920 frames: 60 frames at bf16 (11 T1
+  and 5 T4 per dispatched frame), 30 at float32 (16 T1), 8 under
+  ``--yuv`` (profiled) and under ``--delta``, each JSON line printed;
+  on the card ``_decode_input`` against the CPU and the delta runner's
+  tracks against a host-warp run's, bit for bit; then the tools:
+  ``bench_loader`` (batch 4, in-process and 4 workers, on the cli phase's
+  MOT layout), ``measure_dcn_offsets`` on the checkpoint below, and
+  ``trace_device_ms`` on the profiled run;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -135,6 +148,7 @@ import numpy as np
 import torch
 
 import deft_tpu_torch
+from deft_tpu_torch import bench
 from deft_tpu_torch import test as port_test
 from deft_tpu_torch import train_prediction as port_train_prediction
 from deft_tpu_torch.cli import parse_config
@@ -146,7 +160,7 @@ from deft_tpu_torch.data.synthetic_kitti import make_sequence
 from deft_tpu_torch.data.synthetic_nuscenes import make_scene, make_tables
 import deft_tpu_torch.models.deft as deft_model
 from deft_tpu_torch.inference.detector import Detector, parity_tf
-from deft_tpu_torch.inference.runner import PipelinedRunner
+from deft_tpu_torch.inference.runner import PipelinedRunner, pack_yuv420
 from deft_tpu_torch.models import dcn as dcn_module
 from deft_tpu_torch.models.dcn import HYBRID_CM_CHANNELS, DCNv2
 from deft_tpu_torch.models.factory import create_model
@@ -177,7 +191,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 RADIUS = 4                     # mot_config's dcn_offset_range
-FRAMES = 30
+# frames of the MOT and KITTI paths before the cli phase (30 until the
+# bench phase came; 18 = 4 chunks of 4 and a padded one)
+FRAMES = 18
 # DLA-34 DCNv2 layers at 544x960 input: (H, W, Cin, Cout, layers per frame),
 # checked against the model in the slice phase
 LAYERS = [
@@ -199,7 +215,7 @@ NUSCENES_LAYERS = [
     (28, 50, 256, 64, 1),
     (14, 25, 512, 256, 1),
 ]
-NUSCENES_SAMPLES = 10
+NUSCENES_SAMPLES = 6            # 10 until the bench phase came
 CAMERAS = 6
 # the same layers of a 384x1280 KITTI frame
 KITTI_LAYERS = [
@@ -550,7 +566,8 @@ def backward_row(x, offsets, mask, rng, shape, regime, model="mot",
                 "workspace": plan.workspace},
             "kernel_ms": graph_times(kernel), "kernel_call_ms":
                 cuda_times(kernel),
-            "plain_ms": graph_times(plain, per_graph=5),
+            "plain_ms": graph_times(plain, per_graph=2,
+                                    reps=5),
             "library_ms": graph_times(grid_sample_backward_yardstick(
                 x, offsets, mask, g, radius)),
             "bound_ms": max(t_bytes, t_ops),
@@ -739,7 +756,8 @@ def kernel_phase():
                    "radius": radius,
                    "kernel_ms": graph_times(kernel),
                    "kernel_call_ms": cuda_times(kernel),
-                   "plain_ms": graph_times(plain, per_graph=5),
+                   "plain_ms": graph_times(plain, per_graph=2,
+                                           reps=5),
                    "library_ms": graph_times(library),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -775,7 +793,7 @@ def kernel_phase():
 
 # ---- slice 13: the other model families --------------------------------------
 
-ARCH_FRAMES = 10
+ARCH_FRAMES = 6                # 10 until the bench phase came
 ARCH_TRAIN_ITERS = 3
 # the detection families through create_model -> forward -> detect, each
 # held against itself with every DCN through its plain version: the kernel
@@ -2044,7 +2062,7 @@ def embed_parity_check(det, frame):
 def public_phase(cfg=None, device="cuda", layers=LAYERS, n_frames=FRAMES,
                  size=(1080, 1920)):
     """Slice 7's main path: MOT17 public detections
-    (``mot_config(public_det=True)``) on the slice's 30 synthetic frames,
+    (``mot_config(public_det=True)``) on the slice's synthetic frames,
     whose rectangles give MOT17-like public detections
     (``public_detections``).  First through ``track_videos_detector`` ->
     ``Detector.run`` (``dcn_impl="hybrid"``), then through ``track_videos``
@@ -2199,6 +2217,8 @@ def public_stage_times(det, frames, dets, sync) -> dict:
 
 CLI_DIR = BUILD_DIR.parent / "cli"
 KITTI_CLI_FRAMES = 20          # tracking_val_half.json holds the last 10
+CLI_MOT_FRAMES = 30            # the MOT recipe's motion line needs windows
+                               # of this sequence's trajectories
 NUSCENES_CLI_SAMPLES = 3
 RECIPE_DIRS = {"mot": "mot17", "kitti": "kitti_tracking",
                "nuscenes": "nuscenes"}
@@ -2426,7 +2446,7 @@ def cli_phase():
     (recipe, dcn_impl)."""
     import shutil
 
-    sizes = {"mot": ((1080, 1920), FRAMES),
+    sizes = {"mot": ((1080, 1920), CLI_MOT_FRAMES),
              "kitti": (KITTI_SIZE, KITTI_CLI_FRAMES),
              "nuscenes": ((900, 1600), NUSCENES_CLI_SAMPLES)}
     layers = {"mot": LAYERS, "kitti": KITTI_LAYERS,
@@ -2521,8 +2541,8 @@ def cli_phase():
 # ---- the recipes' train.py lines (slices 9 and 10) ---------------------------
 
 TRAIN_DIR = BUILD_DIR.parent / "train"
-TRAIN_ITERS = 7                # one epoch: the 30 frames at batch 4
-RECIPE_TRAIN_ITERS = 4         # the KITTI and nuScenes train lines
+TRAIN_ITERS = CLI_MOT_FRAMES // 4   # one epoch of the cli frames, batch 4
+RECIPE_TRAIN_ITERS = 3         # the KITTI and nuScenes train lines
 KITTI_TRAIN_FRAMES = 30
 NUSCENES_TRAIN_SAMPLES = 20
 KITTI_CLASSES = ("Car", "Pedestrian", "Cyclist")
@@ -2860,7 +2880,7 @@ def recipes_phase(data_dir: Path) -> dict:
 
 # ---- test-time geometry and data-parallel training (slice 12) ---------------
 
-GEOMETRY_FRAMES = 10
+GEOMETRY_FRAMES = 6            # 10 until the bench phase came
 # the DCNv2 layers of a 375x1242 KITTI frame under keep_res (384x1248) and
 # of a 1080x1920 MOT frame under --fix_short 544 (544x1024)
 KITTI_KEEP_RES_LAYERS = [
@@ -3199,11 +3219,191 @@ def sums_entry(sums):
                          >= sums["bound_operations_ms"] else "operations")}
 
 
+# ---- the bench entry point (python -m deft_tpu_torch.bench) ----------------
+
+REPO = Path(__file__).resolve().parent
+BENCH_DIR = BUILD_DIR.parent / "bench"
+BENCH_PASSES = 3               # the bench's timed passes
+# (run, its flags): the MOT17 path at chunk 4, depth 2, with the C++ lapjv
+# (frames cut to the phase's time: the float32 run's cascade and the host
+# warp of the wire encodings take 120-260 ms per frame on the NVIDIA H100
+# 80GB HBM3 machine at 700 W, PERF.md §6)
+BENCH_RUNS = (
+    ("bf16", ("--frames", "60", "--warmup", "8")),
+    ("fp32", ("--frames", "30", "--warmup", "8", "--fp32")),
+    ("yuv", ("--frames", "8", "--warmup", "4", "--yuv", "--profile",
+             str(BENCH_DIR / "profile"))),
+    ("delta", ("--frames", "8", "--warmup", "4", "--delta")),
+)
+# launches per dispatched frame: the bf16 hybrid takes T1 on the 11 layers
+# of <= 128 input channels and T4 on the other 5; float32 T1 on all 16
+BENCH_PER_FRAME = {"bfloat16": {"dcn_sample": 11, "dcn_sample_onehot": 5},
+                   "float32": {"dcn_sample": 16}}
+BENCH_CHECK_FRAMES = 12        # the delta-vs-host-warp check on the card
+BENCH_LOADER_SAMPLES = 8       # per loader pass of bench_loader
+DECODE_TOL = 1e-5
+
+
+def module_run(module: str, args, timeout: int = 600):
+    """``python -m module args`` in a process of its own from the
+    repository root, with ``DEFT_USE_NATIVE=1``: (stdout, stderr, seconds).
+    A non-zero exit raises with the tail of its stderr."""
+    env = dict(os.environ, DEFT_USE_NATIVE="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"python -m {module} {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-6000:]}")
+    return proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def bench_run(name: str, args) -> dict:
+    """One bench process: its JSON line, the launches of its timed passes
+    against ``BENCH_PER_FRAME`` per dispatched frame, and the C++ lapjv
+    calls of its cascade."""
+    out, err, seconds = module_run("deft_tpu_torch.bench", args)
+    line = json.loads(out.strip().splitlines()[-1])
+    notes = [x for x in err.splitlines() if x.startswith("#")]
+    launch_line = next(x for x in notes if x.startswith("# launches"))
+    launches = json.loads(launch_line.split(": ", 1)[1])
+    lapjv = int(next(x for x in notes if x.startswith("# native lapjv"))
+                .split(": ", 1)[1].split()[0])
+    frames = int(args[args.index("--frames") + 1])
+    dispatched = BENCH_PASSES * math.ceil(frames / CHUNK) * CHUNK
+    dtype = "float32" if "--fp32" in args else "bfloat16"
+    want = {k: BENCH_PER_FRAME[dtype].get(k, 0) * dispatched
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"bench {name}: launches {launches}, expected "
+                             f"{want} ({dispatched} dispatched frames)")
+    if lapjv <= 0:
+        raise AssertionError(f"bench {name}: no C++ lapjv call")
+    missing = {"device_ms", "wire_rtt_ms", "wire_frame_up_ms",
+               "wire_chunk_up_ms", "e2e_ms_per_frame"} - set(line)
+    if torch.cuda.get_device_name(0) in bench.PEAKS:
+        missing |= {"mfu"} - set(line)
+    if missing:
+        raise AssertionError(f"bench {name}: no {sorted(missing)} in {line}")
+    print(json.dumps(line), flush=True)
+    row = {"phase": "bench", "run": name, "args": list(args),
+           "seconds": seconds, "dtype": dtype,
+           "dispatched_frames": dispatched, "launches": launches,
+           "lapjv_calls": lapjv, "line": line, "notes": notes}
+    emit(row)
+    return row
+
+
+def relabel_ids(seq):
+    """Track ids as their order of first appearance."""
+    order = {}
+    return [[order.setdefault(t.track_id, len(order)) for t in fr]
+            for fr in seq]
+
+
+@torch.no_grad()
+def bench_device_checks(device="cuda", cfg=None, size=(1080, 1920)) -> dict:
+    """On the card: ``_decode_input`` of a packed input-size frame against
+    the CPU's to DECODE_TOL, and the delta-upload runner's tracks against a
+    host-warp run's without it (the bench's config, chunk 4): equal bit for
+    bit, the same programs on the same frames."""
+    cfg = cfg or mot_config(track_thresh=1e-3, compute_dtype="bfloat16",
+                            sims_quant=True)
+    frames = [bench.make_synthetic_frame(t, *size)
+              for t in range(BENCH_CHECK_FRAMES)]
+    model = create_model(cfg.arch, cfg, device)
+    packed = torch.from_numpy(np.stack([pack_yuv420(
+        bench.make_synthetic_frame(t, cfg.input_h, cfg.input_w))
+        for t in range(2)]))
+    got = model._decode_input(packed.to(device), True).cpu()
+    want = model.cpu()._decode_input(packed, True)
+    decode_err = float((got - want).abs().max())
+    if decode_err > DECODE_TOL:
+        raise AssertionError(f"_decode_input on the card differs from the "
+                             f"CPU's by {decode_err}")
+    delta = Detector(cfg.replace(delta_upload=True), device=device)
+    plain = Detector(cfg, delta.model.state_dict(), device=device)
+    runs = {}
+    for name, det in (("delta", delta), ("host_warp", plain)):
+        runner = PipelinedRunner(det, depth=2, chunk=CHUNK)
+        runner.host_warp = True
+        runs[name] = runner.track_sequence(frames)
+    same_ids = relabel_ids(runs["delta"]) == relabel_ids(runs["host_warp"])
+    same_boxes = same_ids and all(
+        np.array_equal(a.tlbr, b.tlbr)
+        for fa, fb in zip(runs["delta"], runs["host_warp"])
+        for a, b in zip(fa, fb))
+    if not same_boxes:
+        raise AssertionError("the delta-upload runner's tracks differ from "
+                             "the host-warp run's on the card")
+    row = {"phase": "bench_checks", "decode_max_abs_err": decode_err,
+           "decode_tol": DECODE_TOL, "delta_frames": BENCH_CHECK_FRAMES,
+           "delta_tracks": sum(len(f) for f in runs["delta"]),
+           "delta_equals_host_warp": True}
+    emit(row)
+    return row
+
+
+def bench_tools(data: Path, checkpoint: Path, profiled_frames: int) -> dict:
+    """The measuring tools of the slice, each in a process of its own:
+    ``bench_loader`` on the cli phase's MOT layout (``train.json``, 30
+    frames of 1080x1920 PNG) at batch 4 (BENCH_LOADER_SAMPLES per pass),
+    ``measure_dcn_offsets`` on the checkpoint phase's seeded ``.pth`` (its
+    radii a valid ``--dcn_layer_radii``), ``trace_device_ms`` on the
+    profiled bench run's trace."""
+    from deft_tpu_torch.models.factory import parse_layer_radii
+
+    out, err, secs = module_run("deft_tpu_torch.tools.bench_loader", [
+        "--batch", "4", "--steps", "4", "--workers", "0,4", "--frames",
+        str(BENCH_LOADER_SAMPLES), "--data_dir", str(data)])
+    loader = json.loads(out.strip().splitlines()[-1])
+    if not (loader["value"] > 0 and loader["train_step_ms"] > 0):
+        raise AssertionError(f"bench_loader: {loader}")
+    loader.update(seconds=secs,
+                  notes=[x for x in err.splitlines() if x.startswith("#")])
+    emit({"phase": "bench_loader", **loader})
+    radii_path = BENCH_DIR / "radii.json"
+    out, _, secs = module_run("deft_tpu_torch.tools.measure_dcn_offsets", [
+        "--load_model", str(checkpoint), "--frames", "2",
+        "--radii_out", str(radii_path)])
+    layers = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    radii = json.loads(radii_path.read_text())
+    if len(layers) != 16 or not parse_layer_radii(json.dumps(radii)):
+        raise AssertionError(f"measure_dcn_offsets: {layers} {radii}")
+    emit({"phase": "measure_dcn_offsets", "seconds": secs,
+          "layers": len(layers),
+          "absmax": max(r["absmax"] for r in layers), "radii": radii})
+    out, _, secs = module_run("deft_tpu_torch.tools.trace_device_ms", [
+        str(BENCH_DIR / "profile"), "--frames", str(profiled_frames)])
+    trace = json.loads(out.strip().splitlines()[-1])
+    if not trace["device_busy_ms_total"] > 0:
+        raise AssertionError(f"trace_device_ms: {trace}")
+    emit({"phase": "trace_device_ms", "seconds": secs, **trace})
+    return {"loader": loader, "trace": trace}
+
+
+def bench_phase(data: Path, checkpoint: Path) -> dict:
+    """``python -m deft_tpu_torch.bench`` as a user runs it (``BENCH_RUNS``,
+    ``DEFT_USE_NATIVE=1``), ``bench_device_checks`` and ``bench_tools``;
+    returns each run's launches."""
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    rows = {name: bench_run(name, list(args)) for name, args in BENCH_RUNS}
+    bench_device_checks()
+    profiled = next(args for _, args in BENCH_RUNS if "--profile" in args)
+    bench_tools(data, checkpoint, BENCH_PASSES * int(
+        profiled[profiled.index("--frames") + 1]))
+    return {name: row["launches"] for name, row in rows.items()}
+
+
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
                  public_launches, cli_launches, train_launches,
                  recipe_launches, geometry_rows, ddp_launches,
-                 archs_launches):
+                 archs_launches, bench_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -3230,7 +3430,8 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     (T1 and T2 on a float32 x, T4 and T5 on a bf16 one, T1 and T4 on the
     layers the bf16 hybrid gives each) and ResDCN's unclamped neck (T1,
     ResDCN-18's three layers per frame and ResDCN-101's 2048-channel
-    one)."""
+    one).  The bench phase adds the launches of its runs' timed passes
+    (``python -m deft_tpu_torch.bench``: T1, and T4 at bf16)."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -3440,6 +3641,15 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                 and r["model"] == "mot")
         if arch_paths:
             entry.setdefault("launches_by_path", {}).update(arch_paths)
+        bench_paths = {
+            f"python -m deft_tpu_torch.bench, {run}, {BENCH_PASSES} timed "
+            f"passes": n[name] for run, n in bench_launches.items() if n[name]}
+        if bench_paths:
+            entry["launches"] += sum(bench_paths.values())
+            entry["path"] += ("; the bench phase (MOT17 through "
+                              "PipelinedRunner chunk 4, python -m "
+                              "deft_tpu_torch.bench)")
+            entry.setdefault("launches_by_path", {}).update(bench_paths)
         dla169 = [r for r in mine if r["model"] == "dla169"]
         if dla169:
             entry["dla169_per_frame"] = {
@@ -3519,6 +3729,10 @@ def main() -> int:
     lap("geometry")
     archs_launches = archs_phase(CLI_DIR / "data" / "mot17")
     lap("archs")
+    bench_launches = bench_phase(CLI_DIR / "data" / "mot17",
+                                 BUILD_DIR.parent / "checkpoint"
+                                 / "model_mot.pth")
+    lap("bench")
     emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
@@ -3527,7 +3741,7 @@ def main() -> int:
                       nuscenes_launches, kitti_launches,
                       kitti_runner_launches, public_launches, cli_launches,
                       train_launches, recipe_launches, geometry_rows,
-                      ddp_launches, archs_launches))
+                      ddp_launches, archs_launches, bench_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,7 +1,7 @@
 """KITTI tracking split, the counterpart of
 ``deft_tpu/data/datasets/kitti_tracking.py``: the annotation file and image
 directory of a ``dataset_version``, the KITTI tracking txt writer
-(``track.py::save_kitti_results``) and the scores of
+(``track.py::save_kitti_results``) and the scores of the port's
 ``tools/eval_kitti.py``."""
 
 from __future__ import annotations
@@ -38,9 +38,9 @@ class KITTITrackingDataset(GenericDataset):
 
     def run_eval(self, results, save_dir, gt_dir=None):
         """Write the results, then score the cars against ``gt_dir``'s
-        ``<seq>.txt`` with ``tools/eval_kitti.py``."""
+        ``<seq>.txt`` with the port's ``tools/eval_kitti.py``."""
         results_dir = self.save_results(results, save_dir)
-        from tools.eval_kitti import evaluate_kitti_dir
+        from deft_tpu_torch.tools.eval_kitti import evaluate_kitti_dir
 
         if gt_dir is None:
             gt_dir = os.path.join("data", "kitti_tracking", "label_02")

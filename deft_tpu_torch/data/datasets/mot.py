@@ -1,7 +1,7 @@
 """MOT16/17 tracking split, the counterpart of
 ``deft_tpu/data/datasets/mot.py``: the annotation file and image
 directory of a ``dataset_version``, the MOTChallenge txt writer
-(``track.py::save_mot_results``) and the CLEAR-MOT scores of
+(``track.py::save_mot_results``) and the CLEAR-MOT scores of the port's
 ``tools/eval_mot.py``."""
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ class MOTDataset(GenericDataset):
 
     def run_eval(self, results, save_dir, gt_dir=None):
         """Write the results, then score them against ``gt_dir``'s
-        ``<seq>/gt/gt<gt_type>.txt`` with ``tools/eval_mot.py``."""
+        ``<seq>/gt/gt<gt_type>.txt`` with the port's ``tools/eval_mot.py``."""
         results_dir = self.save_results(results, save_dir)
-        from tools.eval_mot import evaluate_mot_dir
+        from deft_tpu_torch.tools.eval_mot import evaluate_mot_dir
 
         gt_type = ""
         if "17halftrain" in self.dataset_version:

@@ -1,7 +1,8 @@
 """nuScenes monocular 3-D tracking split, the counterpart of
 ``deft_tpu/data/datasets/nuscenes.py``: the annotation file and image
 directory of a split, the submission writer (``track.py::
-nuscenes_submission``) and the AMOTA scores of ``tools/eval_nuscenes.py``.
+nuscenes_submission``) and the AMOTA scores of the port's
+``tools/eval_nuscenes.py``.
 
 Unlike the JAX class, ``run_eval`` lets an evaluator failure raise (the JAX
 one prints it and goes on, ``nuscenes.py:150-158``): a swallowed failure
@@ -57,15 +58,16 @@ class NuScenesDataset(GenericDataset):
     def run_eval(self, results, save_dir):
         """Write the submission; where the split's ``scene.json`` (and the
         other v1.0 tables) are present and the task is tracking, score it
-        with ``tools/eval_nuscenes.py`` and print the table.  Returns
-        ``{"submission": path}`` plus the evaluator's ``overall`` and
-        ``classes`` when it ran."""
+        with the port's ``tools/eval_nuscenes.py`` and print the table.
+        Returns ``{"submission": path}`` plus the evaluator's ``overall``
+        and ``classes`` when it ran."""
         task = "tracking" if self.cfg.tracking else "det"
         out = self.save_results(results, save_dir, task)
         tables = os.path.join(self.data_dir, self.version, "scene.json")
         if task != "tracking" or not os.path.exists(tables):
             return {"submission": out}
-        from tools.eval_nuscenes import evaluate_submission, format_table
+        from deft_tpu_torch.tools.eval_nuscenes import (
+            evaluate_submission, format_table)
 
         res = evaluate_submission(out, self.data_dir, self.version)
         print(format_table(res))

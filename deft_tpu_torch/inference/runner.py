@@ -21,6 +21,23 @@ The runner overlaps them:
   frame goes through ``ops/warp.py::warp_affine_uint8`` (cv2's bilinear
   warp in numpy) with its own transform, and the warped uint8 frames are
   copied into a slab at dispatch and normalized on the device.
+* The wire encodings (``runner.py:140-157, :561-575``) carry warped frames,
+  so they too warp on the host: ``cfg.yuv_upload`` packs each warped frame
+  as planar YUV 4:2:0 (``pack_yuv420``, half the bytes; the frame program
+  decodes it), ``cfg.delta_upload`` sends its uint8 difference from the
+  previous warped frame (the ring state keeps ``prev_frame`` and the frame
+  program adds it back, bit for bit).  They exclude each other and
+  ``cfg.device_warp``; ``public_det`` and ``keep_res`` turn them off.
+* Staging, on a card (``runner.py:198-224``): ``stacked`` (the default for a
+  chunk above 1, ``cfg.stacked_upload``) copies a chunk in one upload from
+  its slab at dispatch; otherwise each frame is copied as it is submitted.
+  ``force_resident`` makes the host wait on an upload's event before the
+  program is queued; ``upload_parallel`` issues each chunk's copy from a
+  3-worker pool, each worker on its own CUDA stream, and the compute stream
+  waits on the copy's event, so programs run in submission order.
+  ``auto_tune`` times the four modes on real frames and keeps the fastest.
+  ``track_sequence(lookahead=n)`` runs the host half (``warp``) of n
+  frames ahead on worker threads (``runner.py:778-813``).
 * Each dispatch's packed detections (float32) and similarities (float16, or
   uint8 under ``sims_quant``) are joined on the device into one byte buffer
   and come back in ONE ``non_blocking`` copy into a pinned buffer, followed
@@ -28,7 +45,8 @@ The runner overlaps them:
   has read it.
 * ONE cascade worker waits on that event, then runs ``post_process`` and the
   tracker, in dispatch order; the main thread blocks on it only when more
-  than CASCADE_DEPTH cascades are outstanding.
+  than CASCADE_DEPTH cascades are outstanding.  ``cap`` > 0 keeps at most
+  that many detections per frame (``runner.py:425, :504-505``).
 * A partial final chunk is padded by repeating its last frame and the pad's
   outputs are dropped (the device ring then holds pad entries: ``reset()``
   before the next sequence).
@@ -37,19 +55,20 @@ The runner overlaps them:
   from a pinned buffer) on the frame warped as the others are: no heads,
   no decode, only the similarity comes back, and the tracker gets the
   public boxes.  (The JAX runner warps such frames on the host; the port
-  warps them on the device under fix_res.)  ``cfg.embed_parity`` feeds every frame program its frame's
-  ``parity_tf``; a chunk's frames share its first frame's, which is exact
-  only under fix_res, so ``embed_parity`` with a chunk above 1 under
-  ``keep_res`` or ``fix_short`` raises a ``ValueError``, as in the JAX
-  runner.  ``cfg.flip_test`` passes into every frame program.
+  warps them on the device under fix_res.)  ``cfg.embed_parity`` feeds
+  every frame program its frame's ``parity_tf``; a chunk's frames share its
+  first frame's, which is exact only under fix_res, so ``embed_parity``
+  with a chunk above 1 under ``keep_res`` or ``fix_short`` raises a
+  ``ValueError``, as in the JAX runner.  ``cfg.flip_test`` passes into
+  every frame program.
 
 On a CPU device (the tests) the same code runs synchronously, without pinned
-memory or events.  Not ported yet (ROADMAP.md, queue A): YUV and delta
-uploads, ``auto_tune`` and the upload modes it chooses between.
+memory, streams or events; an upload there is a copy.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
@@ -66,11 +85,38 @@ from deft_tpu_torch.tracking.tracker import freshness_window
 
 RING_SLOTS = 50
 CASCADE_DEPTH = 1      # cascades left outstanding before the main thread waits
-_LATER = "is not ported yet (ROADMAP.md, queue A)"
+UPLOAD_WORKERS = 3     # upload_parallel's pool (runner.py:206)
+# auto_tune's modes: (name, stacked, force_resident, upload_parallel)
+STAGING_MODES = (("stacked+lazy", True, False, False),
+                 ("stacked+forced", True, True, False),
+                 ("stacked+parallel", True, False, True),
+                 ("perframe", False, False, False))
 # feature width of every packable decode output (runner.py:241-244)
 DET_DIMS = {"scores": 1, "clses": 1, "cts": 2, "bboxes": 4, "bboxes_amodal": 4,
             "tracking": 2, "dep": 1, "rot": 8, "dim": 3, "amodel_offset": 2,
             "nuscenes_att": 8, "velocity": 3}
+
+
+def pack_yuv420(bgr: np.ndarray) -> np.ndarray:
+    """The host half of ``cfg.yuv_upload`` (``runner.py:81-100``): BGR uint8
+    [H, W, 3] -> planar YUV 4:2:0 packed [H*3/2, W] uint8, the Y plane on
+    top and the bottom H/2 rows holding U | V side by side, each [H/2, W/2]
+    averaged over 2x2 blocks.  BT.601 full range;
+    ``DEFTNet._decode_input`` is the device's inverse."""
+    h, w = bgr.shape[:2]
+    b = bgr[..., 0].astype(np.float32)
+    g = bgr[..., 1].astype(np.float32)
+    r = bgr[..., 2].astype(np.float32)
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    u2 = u.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+    v2 = v.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+    out = np.empty((h * 3 // 2, w), np.uint8)
+    out[:h] = np.clip(np.round(y), 0, 255).astype(np.uint8)
+    out[h:, : w // 2] = np.clip(np.round(u2), 0, 255).astype(np.uint8)
+    out[h:, w // 2:] = np.clip(np.round(v2), 0, 255).astype(np.uint8)
+    return out
 
 
 class _Ready:
@@ -143,22 +189,47 @@ class _HostBuffers:
 class PipelinedRunner:
     """Single-sequence tracking loop for MOT/KITTI (2-D datasets)."""
 
+    cap = 0     # > 0: detections per frame fed to the cascade at most
+
     def __init__(self, detector, depth: int = 3, chunk: int = 1):
         cfg = detector.cfg
         if cfg.dataset == "nuscenes":
             raise ValueError("nuScenes samples go through Detector.run_multi "
                              "(track.py::track_nuscenes), as in test.py")
-        for flag in ("yuv_upload", "delta_upload"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} {_LATER}")
         self.det = detector
         self.cfg = cfg
         self.depth = depth
         # public frames interleave their centres' uploads with the ring
         # state: one frame per dispatch (runner.py:117-119)
         self.chunk = 1 if cfg.public_det else max(1, chunk)
-        # the input geometry follows each frame's size: warp on the host
-        self.host_warp = cfg.keep_res or cfg.fix_short > 0
+        # the wire encodings (runner.py:140-153, :351-352)
+        self._yuv_mode = (cfg.yuv_upload and not cfg.public_det
+                          and not cfg.keep_res and cfg.input_h > 0
+                          and cfg.input_h % 2 == 0 and cfg.input_w % 2 == 0)
+        if cfg.yuv_upload and cfg.delta_upload:
+            raise ValueError("--yuv_upload and --delta_upload are mutually "
+                             "exclusive (pick one wire encoding)")
+        device_warp = (cfg.device_warp and not cfg.public_det
+                       and not cfg.keep_res and cfg.fix_short <= 0
+                       and cfg.input_h > 0)
+        if device_warp and (cfg.yuv_upload or cfg.delta_upload):
+            raise ValueError("--device_warp is exclusive with "
+                             "--yuv_upload/--delta_upload (the device warp "
+                             "consumes RAW frames)")
+        self._delta_mode = (cfg.delta_upload and not cfg.public_det
+                            and not cfg.keep_res and cfg.input_h > 0)
+        # the input geometry follows each frame's size, or the wire carries
+        # warped frames: warp on the host
+        self.host_warp = (cfg.keep_res or cfg.fix_short > 0
+                          or self._yuv_mode or self._delta_mode)
+        # staging (runner.py:206-224); auto_tune() measures and picks
+        self.stacked = bool(cfg.stacked_upload) and self.chunk > 1
+        self.force_resident = False
+        self.upload_parallel = False
+        self._upload_pool = ThreadPoolExecutor(max_workers=UPLOAD_WORKERS)
+        self._upload_streams = threading.local()
+        # track_sequence(lookahead=...)'s host warps
+        self._warp_pool = ThreadPoolExecutor(max_workers=max(depth, 2))
         if cfg.embed_parity and self.chunk > 1 and self.host_warp:
             # a chunk's program takes its first frame's inverse transform,
             # exact only under fix_res (runner.py:121-129)
@@ -191,19 +262,29 @@ class PipelinedRunner:
         self._layout = [(key, DET_DIMS[key]) for key in sorted(present)]
         self.reset()
 
-    # ---- options of the JAX runner that this port does not have --------------
-
-    @property
-    def upload_parallel(self) -> bool:
-        return False
-
-    @upload_parallel.setter
-    def upload_parallel(self, value: bool):
-        if value:
-            raise NotImplementedError(f"upload_parallel {_LATER}")
-
     def auto_tune(self, frames, metas=None, verbose: bool = False) -> dict:
-        raise NotImplementedError(f"auto_tune {_LATER}")
+        """Time the staging modes of ``STAGING_MODES`` over ``frames`` (two
+        chunks or more; the programs should be warm), keep the fastest and
+        reset (``runner.py:278-318``).  Returns {mode: frames per second};
+        {} at chunk 1 and under public detections, which have one mode."""
+        if self.chunk <= 1 or self.cfg.public_det:
+            return {}
+        scores = {}
+        for name, stacked, forced, parallel in STAGING_MODES:
+            self.reset()
+            self.stacked, self.force_resident = stacked, forced
+            self.upload_parallel = parallel
+            t0 = time.perf_counter()
+            self.track_sequence(frames, metas)
+            scores[name] = len(frames) / (time.perf_counter() - t0)
+            if verbose:
+                print(f"# auto_tune {name}: {scores[name]:.2f} fps",
+                      file=sys.stderr)
+        best = max(scores, key=scores.get)
+        _, self.stacked, self.force_resident, self.upload_parallel = next(
+            mode for mode in STAGING_MODES if mode[0] == best)
+        self.reset()
+        return scores
 
     # ---- bookkeeping ---------------------------------------------------------
 
@@ -221,7 +302,8 @@ class PipelinedRunner:
             return {k: v / n for k, v in sorted(self.buckets.items())}
 
     def main_keys(self) -> tuple:
-        base = ("warp", "upload", "dispatch", "casc_wait")
+        base = ("warp", "host_prep", "upload", "stage_wait", "dispatch",
+                "casc_wait")
         if not self.cascade_async:
             base = base + ("fetch_wait", "cascade")
         return base
@@ -237,6 +319,11 @@ class PipelinedRunner:
             self._frames_done = 0
         self.state = new_ring(RING_SLOTS, self.cfg.max_object,
                               self.det.embed_dim, self.device)
+        if self._delta_mode:
+            shape = (self.cfg.input_h, self.cfg.input_w, 3)
+            self.state["prev_frame"] = torch.zeros(
+                (1,) + shape, dtype=torch.uint8, device=self.device)
+            self._prev_warped = np.zeros(shape, np.uint8)
         self._pending: List[dict] = []
         self._casc_futs: List = []
         self._chunk_buf: List = []
@@ -288,16 +375,22 @@ class PipelinedRunner:
         pipeline is full, else None."""
         t0 = time.perf_counter()
         dst = None
-        if not self._chunk_buf and not self.host_warp:
-            # the pooled slab of raw frames (a warped frame's size is
-            # known only after its warp: those are copied at dispatch)
-            self._cur_stack = self._slabs.take(
-                (self.chunk,) + tuple(image_bgr.shape), torch.uint8)
+        if not self.host_warp:
+            # the raw frame goes straight into a pooled slab: the chunk's
+            # under stacked staging, its own otherwise (a warped frame's
+            # size is known only after its warp: those are copied later)
+            if not self.stacked:
+                self._cur_stack = self._slabs.take(
+                    (1,) + tuple(image_bgr.shape), torch.uint8)
+            elif not self._chunk_buf:
+                self._cur_stack = self._slabs.take(
+                    (self.chunk,) + tuple(image_bgr.shape), torch.uint8)
         # a chunk begun by submit_warped() has no slab: its frames are
         # copied into one at dispatch (the JAX runner indexes None here,
         # runner.py:546)
         if self._cur_stack is not None:
-            dst = self._cur_stack[len(self._chunk_buf)].numpy()
+            slot = len(self._chunk_buf) if self.stacked else 0
+            dst = self._cur_stack[slot].numpy()
         frame, frame_meta = self.warp(image_bgr, meta, dst=dst)
         self._acc("warp", time.perf_counter() - t0)
         return self.submit_warped(frame, frame_meta)
@@ -308,6 +401,19 @@ class PipelinedRunner:
             raise RuntimeError(
                 "a padded partial chunk was flushed (the device ring holds pad "
                 "entries); call reset() before submitting more frames")
+        t0 = time.perf_counter()
+        if self._delta_mode:
+            payload = frame - self._prev_warped         # uint8 wraps mod 256
+            self._prev_warped = frame
+            frame = payload
+        if self._yuv_mode:
+            frame = pack_yuv420(frame)
+        self._acc("host_prep", time.perf_counter() - t0)
+        if not self.stacked:
+            # per-frame staging: this frame's copy starts now
+            t0 = time.perf_counter()
+            frame = self._upload(self._fill_slab([frame], 1))
+            self._acc("upload", time.perf_counter() - t0)
         self._chunk_buf.append((frame, frame_meta))
         if len(self._chunk_buf) >= self.chunk:
             self._dispatch_chunk()
@@ -330,18 +436,101 @@ class PipelinedRunner:
         self._pop_ready(out, drain=True)
         return out
 
-    def track_sequence(self, frames, metas=None) -> List[List]:
-        """Run a whole sequence; returns per-frame track lists."""
+    def track_sequence(self, frames, metas=None,
+                       lookahead: int = 0) -> List[List]:
+        """Run a whole sequence; returns per-frame track lists.
+        ``lookahead`` > 0 runs the host half of that many frames ahead on
+        worker threads (``runner.py:778-813``)."""
         results: List = []
-        for i, frame in enumerate(frames):
-            done = self.submit(frame, metas[i] if metas else None)
+
+        def collect(done):
             if done is not None:
                 if self.chunk > 1:
                     results.extend(done)
                 else:
                     results.append(done)
+
+        if lookahead <= 0:
+            for i, frame in enumerate(frames):
+                collect(self.submit(frame, metas[i] if metas else None))
+            results.extend(self.flush())
+            return results
+        n = len(frames)
+
+        def warp_ahead(i):
+            return self._warp_pool.submit(self.warp, frames[i],
+                                          metas[i] if metas else None)
+
+        futs = [warp_ahead(i) for i in range(min(lookahead, n))]
+        for i in range(n):
+            if i + lookahead < n:
+                futs.append(warp_ahead(i + lookahead))
+            t0 = time.perf_counter()
+            frame, frame_meta = futs[i].result()
+            self._acc("warp", time.perf_counter() - t0)
+            collect(self.submit_warped(frame, frame_meta))
         results.extend(self.flush())
         return results
+
+    # ---- staging ------------------------------------------------------------
+
+    def _fill_slab(self, frames: List[np.ndarray],
+                   length: int) -> torch.Tensor:
+        """The host slab [length, ...] holding ``frames`` in order: the
+        current slab where they were warped into it (a padded chunk's
+        repeats are copied in), else a pooled one they are copied into."""
+        slab, self._cur_stack = self._cur_stack, None
+        if slab is None or not (
+                slab.shape[0] == length
+                and all(np.shares_memory(f, slab.numpy()) for f in frames)):
+            if slab is not None:
+                self._slabs.give(slab)
+            slab = self._slabs.take((length,) + frames[0].shape, torch.uint8)
+        for i, f in enumerate(frames):
+            slot = slab[i].numpy()
+            if not np.shares_memory(f, slot):
+                np.copyto(slot, f)
+        return slab
+
+    def _copy(self, slab: torch.Tensor):
+        """One copy of ``slab`` to the device on the calling thread's
+        current stream -> (device tensor, event behind the copy); on the
+        CPU a plain copy and no event."""
+        if self.device.type != "cuda":
+            return slab.clone(), None
+        images = slab.to(self.device, non_blocking=True)
+        return images, self._record_event()
+
+    def _copy_on_own_stream(self, slab: torch.Tensor):
+        """``_copy`` on the upload worker's own CUDA stream."""
+        if self.device.type != "cuda":
+            return self._copy(slab)
+        stream = getattr(self._upload_streams, "stream", None)
+        if stream is None:
+            stream = self._upload_streams.stream = torch.cuda.Stream(
+                self.device)
+        with torch.cuda.stream(stream):
+            return self._copy(slab)
+
+    def _upload(self, slab: torch.Tensor) -> torch.Tensor:
+        """Send a filled slab to the device in the staging mode set; the
+        slab returns to its pool behind the copy's event."""
+        if self.upload_parallel:
+            images, event = self._upload_pool.submit(
+                self._copy_on_own_stream, slab).result()
+            if event is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(event)
+                # the copy's memory is in use on the compute stream too
+                images.record_stream(compute)
+        else:
+            images, event = self._copy(slab)
+        self._slabs.give(slab, event)
+        if self.force_resident and event is not None:
+            t0 = time.perf_counter()
+            event.synchronize()
+            self._acc("stage_wait", time.perf_counter() - t0)
+        return images
 
     def _dispatch_chunk(self):
         if not self._chunk_buf:
@@ -350,21 +539,17 @@ class PipelinedRunner:
         metas = [m for _, m in self._chunk_buf]
         self._chunk_buf = []
         n_real = len(frames)
-        t0 = time.perf_counter()
-        slab, self._cur_stack = self._cur_stack, None
-        if slab is None or not all(np.shares_memory(f, slab.numpy())
-                                   for f in frames):
-            slab = self._slabs.take((self.chunk,) + frames[0].shape,
-                                    torch.uint8)
-            for i, f in enumerate(frames):
-                np.copyto(slab[i].numpy(), f)
         if n_real < self.chunk:
             # pad to the chunk length by repeating the last frame
             # (runner.py:614-622); the pad's outputs are dropped below
             self._ring_dirty = True
-            slab[n_real:] = slab[n_real - 1]
-        images = slab.to(self.device, non_blocking=True)
-        self._slabs.give(slab, self._record_event())
+            frames += [frames[-1]] * (self.chunk - n_real)
+        t0 = time.perf_counter()
+        if self.stacked:
+            images = self._upload(self._fill_slab(frames, self.chunk))
+        else:
+            # per-frame staging: the frames are on the device already
+            images = frames[0] if self.chunk == 1 else torch.cat(frames)
         self._acc("upload", time.perf_counter() - t0)
 
         t0 = time.perf_counter()
@@ -372,26 +557,32 @@ class PipelinedRunner:
             self._pending.append(self._dispatch_public(images, metas[0]))
             self._acc("dispatch", time.perf_counter() - t0)
             return
-        model = self.det.model
-        kw = dict(k=self.cfg.K, class_filter=self.class_filter,
-                  sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,
-                  parity_tf=self._parity_tf(metas[0]),
-                  warp_tf=metas[0]["warp_tf"],
-                  warp_out=(metas[0]["inp_height"], metas[0]["inp_width"]),
-                  flip_test=self.cfg.flip_test)
-        if self.chunk == 1:
-            packed, sims = model.frame_step(images, self.state,
-                                            self.cfg.out_thresh, **kw)
-            packed, sims = packed[None], sims[None]
-        else:
-            program = (model.frame_chunk_batched if self.cfg.chunk_batched
-                       else model.frame_chunk)
-            packed, sims = program(images, self.state, self.cfg.out_thresh,
-                                   **kw)
+        packed, sims = self.run_program(images, metas[0])
         item = self._fetch(sims[:n_real], packed[:n_real])
         item["metas"] = metas
         self._pending.append(item)
         self._acc("dispatch", time.perf_counter() - t0)
+
+    def run_program(self, images: torch.Tensor, frame_meta: dict):
+        """Queue the frame program of one dispatch on the device: images
+        [chunk, ...] as uploaded, ``frame_meta`` the first frame's ->
+        (packed [chunk, L], sims [chunk, ...]); the ring is updated in
+        place.  The bench times it alone."""
+        model = self.det.model
+        kw = dict(k=self.cfg.K, class_filter=self.class_filter,
+                  sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,
+                  parity_tf=self._parity_tf(frame_meta),
+                  warp_tf=frame_meta["warp_tf"],
+                  warp_out=(frame_meta["inp_height"],
+                            frame_meta["inp_width"]),
+                  flip_test=self.cfg.flip_test, yuv_in=self._yuv_mode)
+        if images.shape[0] == 1:
+            packed, sims = model.frame_step(images, self.state,
+                                            self.cfg.out_thresh, **kw)
+            return packed[None], sims[None]
+        program = (model.frame_chunk_batched if self.cfg.chunk_batched
+                   else model.frame_chunk)
+        return program(images, self.state, self.cfg.out_thresh, **kw)
 
     def _parity_tf(self, frame_meta: dict):
         """The frame programs' ``parity_tf`` under ``cfg.embed_parity``
@@ -493,6 +684,8 @@ class PipelinedRunner:
             results = public
         else:
             dets, n_valid = unpack_dets(packed, self._layout, self.cfg.K)
+            if self.cap:
+                n_valid = min(n_valid, self.cap)
             results = self.det.post_process(dets, meta)
             if self.cfg.dataset == "kitti_tracking":
                 results = [d for d in results if d["class"] == 2]

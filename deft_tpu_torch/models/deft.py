@@ -32,7 +32,10 @@ Entry points, with the JAX layouts at their boundary:
   similarity against the ``sim_window`` freshest slots of the embedding ring
   and the conditional ring write, with every detection field packed into one
   float32 vector (``pack_dets``) and the similarity in float16 (or uint8);
-  each takes ``flip_test`` into its ``detect``.  ``frame_step_embed`` is
+  each takes ``flip_test`` into its ``detect``, and ``yuv_in`` for frames
+  packed by ``runner.pack_yuv420`` (``_decode_input``).  A ring state
+  holding ``prev_frame`` (delta uploads) takes each frame as a uint8
+  difference against the previous one.  ``frame_step_embed`` is
   the public-detection frame (it does not flip, as in the JAX package):
   device warp, trunk, embeddings at the given centres, the same similarity
   and ring write.
@@ -282,6 +285,41 @@ class DEFTNet(DLASeg):
             image = (image.float() / 255.0 - self.input_mean) / self.input_std
         return image
 
+    def _decode_input(self, image: torch.Tensor,
+                      yuv_in: bool) -> torch.Tensor:
+        """The device half of the input path (``deft_tpu/models/
+        deft.py:293-317``): a [B, H, W, 3] frame (uint8 or normalized), or
+        with ``yuv_in`` a planar YUV 4:2:0 [B, H*3/2, W] uint8 buffer
+        (``runner.pack_yuv420``: BT.601 full range, the chroma averaged over
+        2x2 blocks) whose chroma is nearest-upsampled, converted to BGR,
+        clipped to [0, 255] and normalized -> [B, H, W, 3] float32."""
+        if not yuv_in:
+            return self._maybe_normalize(image)
+        h = image.shape[1] * 2 // 3
+        w = image.shape[2]
+        y = image[:, :h, :].float()
+        u = image[:, h:, : w // 2].float() - 128.0
+        v = image[:, h:, w // 2:].float() - 128.0
+        u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        r = y + 1.402 * v
+        g = y - 0.344136 * u - 0.714136 * v
+        b = y + 1.772 * u
+        bgr = torch.stack([b, g, r], dim=-1).clamp(0.0, 255.0)
+        return (bgr / 255.0 - self.input_mean) / self.input_std
+
+    @staticmethod
+    def _rebuild_delta(images: torch.Tensor, state) -> torch.Tensor:
+        """Delta uploads (``deft_tpu/models/deft.py:441-454, :541-556``):
+        frame t = frame t-1 + delta t modulo 256, from ``state["prev_frame"]``
+        [1, H, W, 3] uint8 over the chunk's deltas [T, H, W, 3] uint8, as one
+        cumulative sum in int32 (exact: at most 255 * (T + 1)).  The last
+        frame becomes the state's ``prev_frame``."""
+        acc = torch.cat([state["prev_frame"], images]).to(torch.int32)
+        frames = (acc.cumsum(0, dtype=torch.int32)[1:] % 256).to(torch.uint8)
+        state["prev_frame"] = frames[-1:]
+        return frames
+
     def _warp_normalize(self, image: torch.Tensor, warp_tf,
                         warp_out: Tuple[int, int]) -> torch.Tensor:
         """Device input warp (``deft_tpu/models/deft.py:390-401``): raw
@@ -365,15 +403,20 @@ class DEFTNet(DLASeg):
                    k: int = 100, class_filter: int = -1,
                    sims_quant: bool = False, sim_window: int = 0,
                    parity_tf=None, warp_tf=None, warp_out=None,
-                   flip_test: bool = False):
+                   flip_test: bool = False, yuv_in: bool = False):
         """One frame of tracking on the device (``deft_tpu/models/
         deft.py:403-455``): image [1, H, W, 3] (raw uint8 with ``warp_tf``
-        and ``warp_out``, else uint8 or normalized at the input size) ->
-        (packed dets, sims); the ring in ``state`` is updated in place.
-        ``parity_tf`` and ``flip_test`` as ``detect``'s."""
+        and ``warp_out``, else uint8 or normalized at the input size; a
+        packed [1, H*3/2, W] with ``yuv_in``; a uint8 delta when ``state``
+        holds ``prev_frame``) -> (packed dets, sims); the ring in ``state``
+        is updated in place.  ``parity_tf`` and ``flip_test`` as
+        ``detect``'s."""
+        _check_wire(state, yuv_in, warp_tf)
         if warp_tf is not None:
             image = self._warp_normalize(image, warp_tf, warp_out)
-        dets, emb = self.detect(self._maybe_normalize(image), k=k,
+        if "prev_frame" in state:
+            image = self._rebuild_delta(image, state)
+        dets, emb = self.detect(self._decode_input(image, yuv_in), k=k,
                                 parity_tf=parity_tf, flip_test=flip_test)
         return self._frame_tail({key: v[0] for key, v in dets.items()},
                                 emb[0], state, out_thresh, class_filter,
@@ -384,18 +427,20 @@ class DEFTNet(DLASeg):
                     k: int = 100, class_filter: int = -1,
                     sims_quant: bool = False, sim_window: int = 0,
                     parity_tf=None, warp_tf=None, warp_out=None,
-                    flip_test: bool = False):
+                    flip_test: bool = False, yuv_in: bool = False):
         """``frame_step`` over a chunk [T, H, W, 3] in frame order
         (``deft_tpu/models/deft.py:492-523``; a loop where the JAX package
         scans), after one batched warp.  One ``parity_tf`` serves the chunk,
         which is exact under fix_res (one geometry for every frame).
         Returns (packed [T, L], sims [T, ...])."""
+        _check_wire(state, yuv_in, warp_tf)
         if warp_tf is not None:
             images = self._warp_normalize(images, warp_tf, warp_out)
         outs = [self.frame_step(images[t: t + 1], state, out_thresh, k=k,
                                 class_filter=class_filter,
                                 sims_quant=sims_quant, sim_window=sim_window,
-                                parity_tf=parity_tf, flip_test=flip_test)
+                                parity_tf=parity_tf, flip_test=flip_test,
+                                yuv_in=yuv_in)
                 for t in range(images.shape[0])]
         return _stack(outs)
 
@@ -405,13 +450,17 @@ class DEFTNet(DLASeg):
                             class_filter: int = -1, sims_quant: bool = False,
                             sim_window: int = 0, parity_tf=None,
                             warp_tf=None, warp_out=None,
-                            flip_test: bool = False):
+                            flip_test: bool = False, yuv_in: bool = False):
         """``frame_chunk`` with one batched ``detect`` over the chunk, then
         the tail per frame in frame order (``deft_tpu/models/
-        deft.py:525-576``)."""
+        deft.py:525-576``); delta frames are rebuilt, in order, before the
+        batched forward."""
+        _check_wire(state, yuv_in, warp_tf)
         if warp_tf is not None:
             images = self._warp_normalize(images, warp_tf, warp_out)
-        dets, emb = self.detect(self._maybe_normalize(images), k=k,
+        if "prev_frame" in state:
+            images = self._rebuild_delta(images, state)
+        dets, emb = self.detect(self._decode_input(images, yuv_in), k=k,
                                 parity_tf=parity_tf, flip_test=flip_test)
         outs = [self._frame_tail({key: v[t] for key, v in dets.items()},
                                  emb[t], state, out_thresh, class_filter,
@@ -439,6 +488,14 @@ class DEFTNet(DLASeg):
         n_valid = n_dets.clamp(max=self.max_object).int()
         return self._sim_and_record(emb, n_valid, state, sims_quant,
                                     sim_window)
+
+
+def _check_wire(state, yuv_in: bool, warp_tf):
+    """The device warp takes raw frames: neither packed nor delta ones
+    (``deft_tpu/models/deft.py:437-439, :557-559``)."""
+    if warp_tf is not None and (yuv_in or "prev_frame" in state):
+        raise ValueError("the device warp is exclusive with yuv and delta "
+                         "uploads")
 
 
 def _stack(outs: List[Tuple[torch.Tensor, torch.Tensor]]):

@@ -1,6 +1,9 @@
 """Thresholded rectangular linear assignment, copied from
-``deft_tpu/tracking/assignment.py`` (scipy path; the JAX package's default
-with ``DEFT_USE_NATIVE`` unset, so the C++ ``native/`` solver is not needed).
+``deft_tpu/tracking/assignment.py``: scipy by default, the C++
+Jonker-Volgenant solver of ``deft_tpu_torch/native`` under
+``DEFT_USE_NATIVE=1`` (both give the same optimal objective; on ties they
+may pick different pairs).  The variable is read at each call; a native
+build that fails raises (``native/__init__.py``).
 
 Replaces ``lap.lapjv(cost, extend_cost=True, cost_limit=thresh)``
 (the reference DEFT's ``src/lib/utils/matching.py:40-55``) with scipy's
@@ -14,6 +17,7 @@ pipeline, per the BASELINE design.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -22,6 +26,10 @@ from scipy.optimize import linear_sum_assignment
 
 def linear_assignment(cost: np.ndarray, thresh: float) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (matches [K, 2], unmatched_rows, unmatched_cols)."""
+    if os.environ.get("DEFT_USE_NATIVE", "0") == "1":
+        from deft_tpu_torch import native
+
+        return native.lapjv(np.asarray(cost, np.float64), thresh)
     cost = np.asarray(cost, dtype=np.float64)
     if cost.size == 0:
         return (

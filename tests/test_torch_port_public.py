@@ -362,7 +362,16 @@ def test_public_configs_build(setup):
 
 @pytest.mark.parametrize("flag", ["debug", "delta_upload", "yuv_upload"])
 def test_refusals_that_stay(setup, flag):
+    """``debug`` needs the visualizer, which is not ported; the wire
+    encodings are off under public detections, as in the JAX runner
+    (runner.py:140-142, :351-352), so the runner builds and ships plain
+    frames."""
     cfg = port_mot_config(public_det=True, **SIZE).replace(
         **{flag: 1 if flag == "debug" else True})
-    with pytest.raises(NotImplementedError, match=flag):
-        PipelinedRunner(Detector(cfg, setup["sd"], device="cpu"))
+    if flag == "debug":
+        with pytest.raises(NotImplementedError, match=flag):
+            PipelinedRunner(Detector(cfg, setup["sd"], device="cpu"))
+        return
+    runner = PipelinedRunner(Detector(cfg, setup["sd"], device="cpu"))
+    assert not (runner._yuv_mode or runner._delta_mode or runner.host_warp)
+    assert "prev_frame" not in runner.state

@@ -5,7 +5,7 @@ full size and the port's CPU tests at a small one.  numpy and the port
 only, no cv2 and no JAX (the card's machine has neither).
 
 * ``write_pngs``: ``image_io.imwrite_png`` for (path, frame) pairs;
-* ``layout_kitti``: a KITTI tracking sequence through
+* ``layout_kitti``: a KITTI tracking sequence through the port's
   ``tools/convert_kittitrack_to_coco.py``;
 * ``layout_nuscenes_train``: a six-camera nuScenes scene, its v1.0 tables
   and ``deft_tpu_torch/tools/convert_nuscenes.py``'s ``train.json``.
@@ -17,11 +17,6 @@ import contextlib
 import json
 import sys
 from pathlib import Path
-
-from recipe_lines import ROOT
-
-if str(ROOT / "tools") not in sys.path:
-    sys.path.insert(0, str(ROOT / "tools"))
 
 
 def write_pngs(paths_and_frames):
@@ -39,12 +34,12 @@ def layout_kitti(root: Path, n_frames: int, size, seed: int,
     ``classes``) as
     ``kitti_tracking/``: PNG frames under
     ``data_tracking_image_2/training/image_02/0000``, ``label_02/0000.txt``
-    and ``calib/0000.txt``, then ``tools/convert_kittitrack_to_coco.py``
+    and ``calib/0000.txt``, then the port's
+    ``tools/convert_kittitrack_to_coco.py``
     (``tracking_train.json`` holds every frame, ``tracking_val_half.json``
     the last half)."""
-    from convert_kittitrack_to_coco import convert
-
     from deft_tpu_torch.data.synthetic_kitti import make_sequence
+    from deft_tpu_torch.tools.convert_kittitrack_to_coco import convert
 
     data = root / "kitti_tracking"
     frames, rows = make_sequence(n_frames=n_frames, height=size[0],

@@ -206,7 +206,10 @@ def check_port_modes_agree(setup):
 def check_ring_and_flags(setup):
     """The device ring after a run holds the frames' counts in order; the
     padded partial chunk marks it dirty until ``reset``; the JAX runner's
-    options that the port has not ported refuse to run."""
+    staging and upload options run (``test_torch_port_bench_*.py`` holds
+    their tracks): ``auto_tune`` sweeps its four modes and keeps one,
+    ``upload_parallel`` is a mode, and the wire encodings build their
+    runners."""
     sd, seq, _, _ = setup
     run = port_runner(sd, chunk=4)
     run.track_sequence(seq)
@@ -218,14 +221,16 @@ def check_ring_and_flags(setup):
     run.reset()
     assert int(run.state["ptr"]) == 0
     assert run.submit(seq[0]) is None
-    with pytest.raises(NotImplementedError):
-        run.auto_tune(seq)
-    with pytest.raises(NotImplementedError):
-        run.upload_parallel = True
+    run.reset()
+    scores = run.auto_tune(seq[:8])
+    assert set(scores) == {"stacked+lazy", "stacked+forced",
+                           "stacked+parallel", "perframe"}
+    assert int(run.state["ptr"]) == 0
+    run.upload_parallel = True
+    assert run.upload_parallel
     for flag in ("yuv_upload", "delta_upload"):
         pcfg = port_mot_config(**{flag: True}, **SIZE)
-        with pytest.raises(NotImplementedError):
-            PipelinedRunner(Detector(pcfg, sd, device="cpu"))
+        assert PipelinedRunner(Detector(pcfg, sd, device="cpu")).host_warp
 
 
 def check_submit_after_submit_warped(setup):
