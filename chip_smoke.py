@@ -15,7 +15,7 @@ max_object=100, 50-slot rings) with seeded random weights:
 
 * slice 1, MOT17 tracking through ``Detector.run`` (544x960,
   ``dcn_impl="hybrid"``, every DCNv2 layer through ``dcn_sample``) on
-  ``FRAMES`` (18) synthetic 1080x1920 frames;
+  ``FRAMES`` (14) synthetic 1080x1920 frames;
 * slice 2, the ``PipelinedRunner`` of ``test.py`` (chunk 1, depth 3) and of
   ``bench.py`` (chunk 4, ``frame_chunk_batched``) with
   ``dcn_impl="pallas"`` (every DCNv2 layer through ``dcn_sample_tap``,
@@ -23,11 +23,11 @@ max_object=100, 50-slot rings) with seeded random weights:
 * slice 4, nuScenes monocular 3-D tracking through ``track.py::
   track_nuscenes`` -> ``Detector.run_multi`` (``nuscenes_config()``: 448x800,
   3-D heads, 704-wide AFE, seven per-class trackers with the LSTM motion
-  model) on ``NUSCENES_SAMPLES`` (6) samples of a synthetic six-camera rig
+  model) on ``NUSCENES_SAMPLES`` (4) samples of a synthetic six-camera rig
   of 900x1600 frames,
   each sample's cameras as one batch;
 * slice 6, KITTI 2-D vehicle tracking (``kitti_config()``: 384x1280, three
-  classes, cars tracked) on 18 synthetic 375x1242 frames of the numpy
+  classes, cars tracked) on 14 synthetic 375x1242 frames of the numpy
   generator ``deft_tpu_torch/data/synthetic_kitti.py``, through
   ``track.py::track_videos_detector`` -> ``Detector.run`` (``dcn_impl=
   "hybrid"``) and through the ``PipelinedRunner`` at chunk 1 and chunk 4
@@ -71,17 +71,17 @@ max_object=100, 50-slot rings) with seeded random weights:
   loader, once through the one-process ``main`` and once as rank 0 of an
   NCCL group of world size 1 (``train.run.train_rank``), the first step's
   losses held together, rank 0's ``model_last.pth`` checked; and
-  test-time geometry (``geometry_phase``, last): 6 MOT frames through
+  test-time geometry (``geometry_phase``, last): 4 MOT frames through
   ``Detector.run`` under ``flip_test`` at float32 (T1 on both samples of
   every layer) and bf16 (T4), through the runner under ``flip_test`` at
-  chunk 4 (T2) and under ``--fix_short 544`` (544x1024), and 6 KITTI
+  chunk 4 (T2) and under ``--fix_short 544`` (544x1024), and 4 KITTI
   frames under ``keep_res`` (384x1248) through ``Detector.run`` and the
   runner at chunk 1 (host warp), and 3 nuScenes samples under
   ``flip_test`` through ``run_multi`` (the trunk at 12 camera images); T1,
   T2 and T4 also held at the keep_res KITTI and fix_short MOT layer shapes
   in the kernel phase;
 * slice 13, the other model families (``archs_phase``, last): DLA-169
-  (``--arch dla_169``) tracking 6 MOT frames through ``Detector.run`` at
+  (``--arch dla_169``) tracking 4 MOT frames through ``Detector.run`` at
   float32 (16 T1 per frame) and bf16 (T1 on its five 128-channel layers,
   T4 on the other 11) and through the runner at chunk 1 (16 T2), the MOT
   recipe's train line at ``--arch dla_169`` (bf16, batch 4, 3 steps,
@@ -99,13 +99,27 @@ max_object=100, 50-slot rings) with seeded random weights:
   (the cascade's assignment through the C++ lapjv of
   ``deft_tpu_torch/native``), MOT17 through the runner at chunk 4, depth
   2 on the bench's synthetic 1080x1920 frames: 60 frames at bf16 (11 T1
-  and 5 T4 per dispatched frame), 30 at float32 (16 T1), 8 under
+  and 5 T4 per dispatched frame), 16 at float32 (16 T1), 8 under
   ``--yuv`` (profiled) and under ``--delta``, each JSON line printed;
   on the card ``_decode_input`` against the CPU and the delta runner's
   tracks against a host-warp run's, bit for bit; then the tools:
   ``bench_loader`` (batch 4, in-process and 4 workers, on the cli phase's
   MOT layout), ``measure_dcn_offsets`` on the checkpoint below, and
   ``trace_device_ms`` on the profiled run;
+* slice 15, the visualizer and the COCO-format datasets (after the bench
+  phase): the MOT recipe's test line with ``--debug 2 --save_video``
+  (``visual_phase``: 4 1080x1920 PNG frames at float32 and bf16, frame by
+  frame through ``Detector.run``; 32 T1 per frame at float32, 22 T1 + 10
+  T4 at bf16, detect and the ``pred_hm`` forward, whose peaks must be
+  detect's; the three boards of every frame and the video's frames), the
+  COCO lines (``coco_phase``: ``--dataset coco`` at 512x512 with 80
+  classes, 3 bf16 train steps with T4 and T5, the test line with
+  ``tools/eval_coco.py``'s 12 stats, and one ``--dataset custom`` frame;
+  the kernel phase holds T1, T4 and T5 at its layer shapes,
+  ``COCO_LAYERS``, checked against the model there),
+  and ``python -m deft_tpu_torch.tools.bench_dcn --iters 20 --regimes
+  trained`` (``bench_dcn_phase``), its T1, T2 and T4 per layer within 25%
+  of the kernel phase's;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -165,7 +179,16 @@ from deft_tpu_torch.models import dcn as dcn_module
 from deft_tpu_torch.models.dcn import HYBRID_CM_CHANNELS, DCNv2
 from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
+from deft_tpu_torch.ops.decode import heat_nms, topk
 from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_separable
+from deft_tpu_torch.tools import bench_dcn
+# the DLA-34 layer table at 544x960 (H, W, Cin, Cout, layers per frame,
+# checked against the model in the slice phase) and the offset regimes are
+# bench_dcn's, whose rows bench_dcn_phase holds against the kernel phase's
+from deft_tpu_torch.tools.bench_dcn import (FP32_FLOPS_PER_S, LAYERS,
+                                            HBM_BYTES_PER_S, bound_times,
+                                            grid_sample_yardstick,
+                                            yardstick_inputs)
 from deft_tpu_torch.train import run as port_train
 from deft_tpu_torch.track import (
     nuscenes_submission,
@@ -177,34 +200,23 @@ from deft_tpu_torch.track import (
 )
 from deft_tpu_torch.tracking import matching, motion_lstm
 from deft_tpu_torch.tracking.basetrack import IdAllocator
+from deft_tpu_torch.utils import visualize
+from deft_tpu_torch.utils.visualize import VideoWriter
 
 # the recipes' command lines, shared with the port's tests (a site package
 # named ``tests`` would shadow the repository's directory as a package)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from recipe_lines import (RECIPES, recipe_lines, recipe_test_argv,  # noqa: E402
                           with_flags)
-from torch_port_layouts import (layout_kitti,  # noqa: E402
+from torch_port_layouts import (layout_coco, layout_kitti,  # noqa: E402
                                 layout_nuscenes_train, write_pngs)
 
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 RADIUS = 4                     # mot_config's dcn_offset_range
 # frames of the MOT and KITTI paths before the cli phase (30 until the
-# bench phase came; 18 = 4 chunks of 4 and a padded one)
-FRAMES = 18
-# DLA-34 DCNv2 layers at 544x960 input: (H, W, Cin, Cout, layers per frame),
-# checked against the model in the slice phase
-LAYERS = [
-    (136, 240, 64, 64, 5),
-    (68, 120, 128, 64, 4),
-    (68, 120, 128, 128, 2),
-    (34, 60, 256, 128, 2),
-    (34, 60, 256, 256, 1),
-    (34, 60, 256, 64, 1),
-    (17, 30, 512, 256, 1),
-]
+# bench phase came, 18 until slice 15's phases; 14 = 3 chunks of 4 and a
+# padded one)
+FRAMES = 14
 # the same layers of one 448x800 nuScenes camera (6 per sample)
 NUSCENES_LAYERS = [
     (112, 200, 64, 64, 5),
@@ -215,7 +227,7 @@ NUSCENES_LAYERS = [
     (28, 50, 256, 64, 1),
     (14, 25, 512, 256, 1),
 ]
-NUSCENES_SAMPLES = 6            # 10 until the bench phase came
+NUSCENES_SAMPLES = 4            # 10, then 6 until slice 15's phases
 CAMERAS = 6
 # the same layers of a 384x1280 KITTI frame
 KITTI_LAYERS = [
@@ -387,81 +399,12 @@ def device_profile(fn, n: int, host_ops: bool = True):
 # ---- the kernel against its plain version ----------------------------------
 
 def make_offsets(rng, h, w, regime: str) -> np.ndarray:
-    """'trained': N(0, 0.5) noise on a smooth ramp, clipped to +-2 px (the
-    regime tools/bench_dcn.py measures for trained checkpoints);
-    'uniform6': U(-6, 6), which reaches past the +-4 clamp everywhere."""
-    if regime == "trained":
-        yy = np.linspace(-1.0, 1.0, h, dtype=np.float32)[:, None, None, None]
-        xx = np.linspace(-1.0, 1.0, w, dtype=np.float32)[None, :, None, None]
-        ramp = np.concatenate([yy + 0 * xx, xx + 0 * yy], axis=-1)
-        noise = rng.normal(0.0, 0.5, (h, w, 9, 2)).astype(np.float32)
-        return np.clip(noise + 0.7 * ramp, -2.0, 2.0)
-    return rng.uniform(-6.0, 6.0, (h, w, 9, 2)).astype(np.float32)
-
-
-def bound_times(h, w, c, in_bytes, out_bytes, cout=0):
-    """Least time for one call, as (bytes_ms, ffma_ms, route_ms): the inputs
-    read once and the output written once over the memory rate; 8 flops per
-    sampled patch element plus ~40 per (pixel, tap), plus 2 per
-    multiply-add of the [9C, Cout] product when ``cout`` (the fused kernel,
-    whose output is [H*W, Cout] instead of the patches).  ``ffma_ms`` counts
-    all of them at the float32 rate outside the tensor cores; ``route_ms``
-    counts them on the units the kernels use: the sampling at the float32
-    rate, the fused kernel's product three times (3xTF32) at the TF32
-    tensor-core rate, whichever takes longer.  The bound is the larger of
-    the bytes and the route's operations."""
-    nbytes = h * w * c * in_bytes + h * w * 9 * 2 * 4 + h * w * 9 * 4
-    sample_ms = h * w * 9 * (8 * c + 40) / FP32_FLOPS_PER_S * 1e3
-    ffma_ms = route_ms = sample_ms
-    if cout:
-        nbytes += 9 * c * cout * 4 + cout * 4 + h * w * cout * in_bytes
-        product = 2 * h * w * 9 * c * cout
-        ffma_ms += product / FP32_FLOPS_PER_S * 1e3
-        route_ms = max(sample_ms, 3 * product / TF32_FLOPS_PER_S * 1e3)
-    else:
-        nbytes += h * w * 9 * c * out_bytes
-    return nbytes / HBM_BYTES_PER_S * 1e3, ffma_ms, route_ms
-
-
-def yardstick_inputs(x, offsets, mask, radius):
-    """``grid_sample``'s operands for the 9-tap sampling: x as NCHW, the
-    [1, 9, H*W, 2] grid (corner-aligned) and the mask as [1, 1, 9, H*W]; a
-    bf16 x keeps bf16 (``grid_sample`` takes one dtype), grid and mask
-    included."""
-    h, w, c = x.shape
-    dev = x.device
-    off = offsets.clamp(-radius, radius) if radius >= 0 else offsets
-    k = torch.arange(3, dtype=torch.float32, device=dev) - 1.0
-    ky, kx = torch.meshgrid(k, k, indexing="ij")
-    yy = (torch.arange(h, dtype=torch.float32, device=dev)[:, None, None]
-          + ky.reshape(1, 1, 9) + off[..., 0])
-    xx = (torch.arange(w, dtype=torch.float32, device=dev)[None, :, None]
-          + kx.reshape(1, 1, 9) + off[..., 1])
-    grid = torch.stack([2.0 * xx / (w - 1) - 1.0, 2.0 * yy / (h - 1) - 1.0],
-                       dim=-1).permute(2, 0, 1, 3).reshape(1, 9, h * w, 2)
-    x_nchw = x.permute(2, 0, 1)[None].contiguous()
-    if x.dtype != torch.bfloat16:
-        x_nchw = x_nchw.float()
-    grid = grid.to(x_nchw.dtype)
-    m = mask.permute(2, 0, 1).reshape(1, 1, 9, h * w).to(x_nchw.dtype)
-    return x_nchw, grid, m
-
-
-def grid_sample_yardstick(x, offsets, mask, radius):
-    """The same sampling through one library call: ``grid_sample`` of the
-    9-tap grid (zeros padding, corner-aligned), times the mask.  Returns the
-    timed closure, whose result is [1, C, 9, H*W]; the grid is built once
-    outside it.  A bf16 x is sampled in bf16, grid and mask included
-    (``grid_sample`` takes one dtype); a yardstick of time only."""
-    x_nchw, grid, m = yardstick_inputs(x, offsets, mask, radius)
-
-    def run():
-        s = torch.nn.functional.grid_sample(
-            x_nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True)                              # [1, C, 9, HW]
-        return s * m
-
-    return run
+    """'trained': ``bench_dcn.make_offsets``' regime of trained checkpoints
+    (N(0, 0.5) noise on a smooth ramp, clipped to +-2 px); 'uniform6':
+    U(-6, 6), which reaches past the +-4 clamp everywhere."""
+    if regime == "uniform6":
+        return rng.uniform(-6.0, 6.0, (h, w, 9, 2)).astype(np.float32)
+    return bench_dcn.make_offsets(rng, h, w, 9, regime)
 
 
 def grid_sample_backward_yardstick(x, offsets, mask, g, radius):
@@ -661,6 +604,12 @@ PHASE_KERNELS = {
     ("resdcn18", torch.bfloat16): ("dcn_sample",),
     ("resdcn101", torch.float32): ("dcn_sample",),
     ("resdcn101", torch.bfloat16): ("dcn_sample",),
+    # slice 15's COCO lines at 512x512: T1 on a float32 x (the heatmap
+    # raise's forward), the bf16 hybrid's T1 (layers of <= 128 channels)
+    # and T4, and T5 of the bf16 train line
+    ("coco", torch.float32): ("dcn_sample",),
+    ("coco", torch.bfloat16): ("dcn_sample", "dcn_sample_onehot",
+                               "dcn_backward"),
 }
 # the clamp radius of each model's layers in the kernel phase
 PHASE_RADIUS = {"resdcn18": GATHER_RADIUS, "resdcn101": GATHER_RADIUS}
@@ -677,7 +626,9 @@ def kernel_phase():
     bf16 x past the clamp; ``backward_row``; its unclamped route once, at
     radius -1 on the largest MOT layer), and the layer shapes of DLA-169
     (T1, T2 on a float32 x; T1 on its 128-channel layers, T4 and T5 on a
-    bf16 x) and of ResDCN's neck (T1 unclamped, both dtypes); the bitwise
+    bf16 x) and of ResDCN's neck (T1 unclamped, both dtypes), and the
+    layer shapes of DLA-34 at COCO's 512x512 (T1 on a float32 x; T1 on
+    its 64- and 128-channel layers, T4 and T5 on a bf16 x); the bitwise
     checks at every
     float32 MOT case; times and bounds per call, T2 with the GEMM that
     reads its patches, and each kernel's plan."""
@@ -700,7 +651,8 @@ def kernel_phase():
                                     ("mot_fix_short", MOT_FIX_SHORT_LAYERS),
                                     ("dla169", DLA169_LAYERS),
                                     ("resdcn18", RESDCN18_LAYERS),
-                                    ("resdcn101", RESDCN101_FIRST))
+                                    ("resdcn101", RESDCN101_FIRST),
+                                    ("coco", COCO_LAYERS))
               for dtype in (torch.float32, torch.bfloat16)
               for shape in layers]
     for (h, w, c, cout, count), regime, dtype, model in cases:
@@ -719,8 +671,8 @@ def kernel_phase():
         if f32 and model == "mot":
             bitwise_checks(x, offsets, mask, weight, bias, (h, w, c, cout))
         for name in PHASE_KERNELS[(model, dtype)]:
-            if (model == "dla169" and not f32 and name == "dcn_sample"
-                    and c > HYBRID_CM_CHANNELS):
+            if (model in ("dla169", "coco") and not f32
+                    and name == "dcn_sample" and c > HYBRID_CM_CHANNELS):
                 continue
             if (not f32 and name == "dcn_fused"
                     and (h, w, c, cout, count) != LAYERS[0]):
@@ -793,7 +745,7 @@ def kernel_phase():
 
 # ---- slice 13: the other model families --------------------------------------
 
-ARCH_FRAMES = 6                # 10 until the bench phase came
+ARCH_FRAMES = 4                # 10, then 6 until slice 15's phases
 ARCH_TRAIN_ITERS = 3
 # the detection families through create_model -> forward -> detect, each
 # held against itself with every DCN through its plain version: the kernel
@@ -1148,6 +1100,27 @@ def synthetic_frames(n: int, h: int = 1080, w: int = 1920):
     """``synthetic_scene``'s frames alone."""
     for img, _ in synthetic_scene(n, h, w):
         yield img
+
+
+@torch.no_grad()
+def dcn_layer_shapes(model, image) -> Counter:
+    """The (H, W, Cin, Cout) of every DCNv2 layer in one forward of
+    ``image``, counted."""
+    shapes = Counter()
+
+    def pre_hook(mod, args):
+        x = args[0]
+        shapes[(x.shape[2], x.shape[3], x.shape[1],
+                mod.weight.shape[0])] += 1
+
+    hooks = [m.register_forward_pre_hook(pre_hook) for m in model.modules()
+             if isinstance(m, DCNv2)]
+    try:
+        model(image)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return shapes
 
 
 @torch.no_grad()
@@ -2219,7 +2192,7 @@ CLI_DIR = BUILD_DIR.parent / "cli"
 KITTI_CLI_FRAMES = 20          # tracking_val_half.json holds the last 10
 CLI_MOT_FRAMES = 30            # the MOT recipe's motion line needs windows
                                # of this sequence's trajectories
-NUSCENES_CLI_SAMPLES = 3
+NUSCENES_CLI_SAMPLES = 2       # 3 until slice 15's phases
 RECIPE_DIRS = {"mot": "mot17", "kitti": "kitti_tracking",
                "nuscenes": "nuscenes"}
 
@@ -2432,7 +2405,7 @@ def cli_phase():
     ``deft_tpu_torch.test.main`` on the card with ``--data_dir``,
     ``--exp_dir`` and the weight files added, on datasets laid out in PNG
     under ``build/cli/`` (30 1080x1920 MOT frames, 10 375x1242 KITTI frames
-    in the val half, 3 samples x 6 cameras of 900x1600).  Per recipe and
+    in the val half, 2 samples x 6 cameras of 900x1600).  Per recipe and
     dtype (bf16, the line's own, then float32) one unprofiled run, timed
     (wall ms per frame with the image reads, the reads alone, peak memory,
     launches and the dtype of every kernel's x), then the same line under
@@ -2626,8 +2599,9 @@ def train_line(recipe: str, argv, per_step: int, steps: int, profile=None
     t_run = time.perf_counter() - t_run
     n = len(stats["step_seconds"])
     sampler = "dcn_sample_onehot" if dtype == "bfloat16" else "dcn_sample"
-    want = {(sampler, dtype): per_step * n, ("dcn_backward", dtype):
-            per_step * n}
+    want = {key: per_step * n for key in ((sampler, dtype),
+                                          ("dcn_backward", dtype))
+            if per_step}
     want_count = dict.fromkeys(KERNELS, 0)
     want_count.update({k: v for (k, _), v in want.items()})
     if n != steps or count != want_count or seen != want:
@@ -2880,7 +2854,7 @@ def recipes_phase(data_dir: Path) -> dict:
 
 # ---- test-time geometry and data-parallel training (slice 12) ---------------
 
-GEOMETRY_FRAMES = 6            # 10 until the bench phase came
+GEOMETRY_FRAMES = 4            # 10, then 6 until slice 15's phases
 # the DCNv2 layers of a 375x1242 KITTI frame under keep_res (384x1248) and
 # of a 1080x1920 MOT frame under --fix_short 544 (544x1024)
 KITTI_KEEP_RES_LAYERS = [
@@ -3225,12 +3199,13 @@ REPO = Path(__file__).resolve().parent
 BENCH_DIR = BUILD_DIR.parent / "bench"
 BENCH_PASSES = 3               # the bench's timed passes
 # (run, its flags): the MOT17 path at chunk 4, depth 2, with the C++ lapjv
-# (frames cut to the phase's time: the float32 run's cascade and the host
+# (frames cut to the phase's time, the float32 run's from 30 to 16 for
+# slice 15's phases: the float32 run's cascade and the host
 # warp of the wire encodings take 120-260 ms per frame on the NVIDIA H100
 # 80GB HBM3 machine at 700 W, PERF.md §6)
 BENCH_RUNS = (
     ("bf16", ("--frames", "60", "--warmup", "8")),
-    ("fp32", ("--frames", "30", "--warmup", "8", "--fp32")),
+    ("fp32", ("--frames", "16", "--warmup", "8", "--fp32")),
     ("yuv", ("--frames", "8", "--warmup", "4", "--yuv", "--profile",
              str(BENCH_DIR / "profile"))),
     ("delta", ("--frames", "8", "--warmup", "4", "--delta")),
@@ -3399,11 +3374,388 @@ def bench_phase(data: Path, checkpoint: Path) -> dict:
     return {name: row["launches"] for name, row in rows.items()}
 
 
+# ---- slice 15: the visualizer, COCO and custom datasets, bench_dcn ----------
+
+VISUAL_DIR = BUILD_DIR.parent / "visual"
+VISUAL_FRAMES = 4
+VISUAL_SIZE = (1080, 1920)
+# launches per frame of the MOT line under --debug 2: detect and the pred_hm
+# forward, 16 DCNv2 layers each through the hybrid (bf16: 11 + 5)
+VISUAL_PER_FRAME = {"float32": {"dcn_sample": 32},
+                    "bfloat16": {"dcn_sample": 22, "dcn_sample_onehot": 10}}
+BOARDS = ("generic", "previous", "pred_hm")
+# decoded peaks within this of the K-th score are ties: left out of the
+# pred_hm check
+PEAK_TIE = {"float32": 1e-5, "bfloat16": 1e-2}
+COCO_DIR = BUILD_DIR.parent / "coco"
+COCO_SIZE = (480, 640)           # COCO's images are about 640x480
+COCO_TRAIN_ITERS = 3
+# DLA-34's DCNv2 layers at COCO's 512x512 input, which the coco phase's
+# train and test lines run (checked against the model there)
+COCO_LAYERS = [
+    (128, 128, 64, 64, 5),
+    (64, 64, 128, 64, 4),
+    (64, 64, 128, 128, 2),
+    (32, 32, 256, 128, 2),
+    (32, 32, 256, 256, 1),
+    (32, 32, 256, 64, 1),
+    (16, 16, 512, 256, 1),
+]
+# COCO 2017's 80 category ids: 1-90 less the ten its detection split skips
+COCO_CATEGORIES = [{"id": i, "name": f"class_{i}"} for i in range(1, 91)
+                   if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+COCO_STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+              "AR100", "ARs", "ARm", "ARl")
+BENCH_DCN_TOL = 0.25             # bench_dcn against the kernel phase, per layer
+
+
+@contextlib.contextmanager
+def debug_records():
+    """While it is open, per ``Detector.run`` frame: the decoded peaks of
+    ``process`` (``scores``, ``ys``, ``xs``, ``clses``), the ``pred_hm``
+    forward's heatmap (``debug_heatmap``), and the host seconds spent in
+    ``show_debug`` and in ``VideoWriter.write``."""
+    rec = {"dets": [], "hm": [], "boards_seconds": 0.0,
+           "video_seconds": 0.0}
+    saved = (Detector.process, Detector.debug_heatmap, Detector.show_debug,
+             VideoWriter.write)
+
+    def process(self, images, meta=None):
+        dets, emb = saved[0](self, images, meta)
+        rec["dets"].append({k: dets[k] for k in ("scores", "ys", "xs",
+                                                 "clses")})
+        return dets, emb
+
+    def debug_heatmap(self, images):
+        hm = saved[1](self, images)
+        rec["hm"].append(hm)
+        return hm
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            rec[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    Detector.process, Detector.debug_heatmap = process, debug_heatmap
+    Detector.show_debug = timed(saved[2], "boards_seconds")
+    VideoWriter.write = timed(saved[3], "video_seconds")
+    try:
+        yield rec
+    finally:
+        (Detector.process, Detector.debug_heatmap, Detector.show_debug,
+         VideoWriter.write) = saved
+
+
+def peak_check(dets, hm, k: int, tie: float) -> dict:
+    """The ``pred_hm`` forward's heatmap decoded as ``detect`` decodes its
+    own (clamped as ``clamped_sigmoid``, the 3x3 max-pool, top-K) against
+    the detect
+    program's peaks: every decoded peak more than ``tie`` above the K-th
+    score must be among the heatmap's top K at the same (y, x, class).
+    Returns the peaks compared and the largest score difference."""
+    heat = heat_nms(torch.from_numpy(hm)[None].clamp(1e-4, 1.0 - 1e-4))
+    scores, _, clses, ys, xs = topk(heat, k=k)
+    mine = {(int(y), int(x), int(c)): float(s) for s, y, x, c in zip(
+        scores[0], ys[0], xs[0], clses[0])}
+    floor = float(dets["scores"][0].min())
+    compared, worst = 0, 0.0
+    for s, y, x, c in zip(dets["scores"][0], dets["ys"][0], dets["xs"][0],
+                          dets["clses"][0]):
+        if s <= floor + tie:
+            continue
+        key = (int(y), int(x), int(c))
+        if key not in mine:
+            raise AssertionError(f"decoded peak {key} (score {s}) is not "
+                                 f"among the pred_hm forward's top {k}")
+        compared += 1
+        worst = max(worst, abs(mine[key] - float(s)))
+    return {"peaks_compared": compared, "max_score_diff": worst}
+
+
+def visual_phase(weights: Path) -> dict:
+    """Slice 15's main path: the MOT recipe's test line through
+    ``deft_tpu_torch.test.main`` with ``--debug 2 --save_video`` (so frame
+    by frame through ``Detector.run``) on ``VISUAL_FRAMES`` 1080x1920 PNG
+    frames (``layout_mot`` under ``build/visual/``), the cli phase's MOT
+    weights, at float32 and at the line's bf16.  Asserts per run the
+    launches (``VISUAL_PER_FRAME``: detect and the pred_hm forward), the
+    results and their MOT scores (``check_cli_outputs``), the three boards
+    of every frame under ``<save_dir>/debug/`` and the video's frames
+    (PNG in ``video_1/`` without cv2, else ``video_1.mp4``), and that the
+    pred_hm forward's peaks are the detect program's (``peak_check``).
+    Reports ms/frame with the boards and the video, without them (the same
+    run less the host seconds of ``show_debug`` and the video writes), and
+    the two alone, and the time of one ``plot_tracking`` board with its
+    rectangles drawn as slices (``_band``) and through the general polygon
+    fill (``band_times``).  Returns each dtype's launches."""
+    import shutil
+
+    shutil.rmtree(VISUAL_DIR, ignore_errors=True)
+    data = layout_mot(VISUAL_DIR / "data", VISUAL_FRAMES, VISUAL_SIZE)
+    launched = {}
+    for dtype in ("float32", "bfloat16"):
+        argv = recipe_test_argv(
+            "mot", data_dir=VISUAL_DIR / "data",
+            exp_dir=VISUAL_DIR / "exp" / dtype, gpus=0,
+            save_results=True, load_model=weights, compute_dtype=dtype,
+            debug=2, save_video=True)
+        cfg = parse_config(argv)[0]
+        with debug_records() as rec:
+            metrics, stats, count, seen, peak, _ = cli_run(argv)
+        n = stats["frames"]
+        want = {(name, dtype): per * n
+                for name, per in VISUAL_PER_FRAME[dtype].items()}
+        want_count = dict.fromkeys(KERNELS, 0)
+        want_count.update({name: v for (name, _), v in want.items()})
+        if n != VISUAL_FRAMES or count != want_count or seen != want:
+            raise AssertionError(f"visual {dtype}: {n} frames, launches "
+                                 f"{count} on x {seen}, expected {want}")
+        items = check_cli_outputs("mot", argv, metrics, data)
+        save = Path(cfg.save_dir)
+        boards = sorted(p.name for p in (save / "debug").iterdir())
+        if boards != sorted(f"{i:05d}_{b}.png" for i in range(1, n + 1)
+                            for b in BOARDS):
+            raise AssertionError(f"visual {dtype}: boards {boards}")
+        for name in boards:
+            board = imread(str(save / "debug" / name))
+            want_shape = ((cfg.input_h, cfg.input_w, 3) if "pred_hm" in name
+                          else VISUAL_SIZE + (3,))
+            if board is None or board.shape != want_shape:
+                raise AssertionError(f"visual {dtype}: board {name}")
+        video = sorted((save / "video_1").glob("*.png"))
+        mp4 = save / "video_1.mp4"
+        if len(video) != n and not (mp4.is_file() and mp4.stat().st_size):
+            raise AssertionError(f"visual {dtype}: {len(video)} video "
+                                 f"frames of {n}, no {mp4.name}")
+        if len(rec["hm"]) != n or len(rec["dets"]) != n:
+            raise AssertionError(f"visual {dtype}: {len(rec['hm'])} pred_hm "
+                                 f"forwards, {len(rec['dets'])} detects")
+        peaks = [peak_check(d, h, cfg.K, PEAK_TIE[dtype])
+                 for d, h in zip(rec["dets"], rec["hm"])]
+        ms = stats["seconds"] * 1e3 / n
+        drawn_ms = (rec["boards_seconds"] + rec["video_seconds"]) * 1e3 / n
+        emit({"phase": "visual", "dtype": dtype, "argv": argv, "frames": n,
+              "launches": count,
+              "x_dtype_launches": {f"{k} {d}": v for (k, d), v in
+                                   seen.items()},
+              "items": items, "boards": len(boards),
+              "video": (f"{len(video)} PNG frames in video_1/" if video
+                        else mp4.name),
+              "peaks_compared": sum(p["peaks_compared"] for p in peaks),
+              "peak_max_score_diff": max(p["max_score_diff"]
+                                         for p in peaks),
+              "ms_per_frame_with_boards": ms,
+              "ms_per_frame_without_boards": ms - drawn_ms,
+              "boards_ms_per_frame": rec["boards_seconds"] * 1e3 / n,
+              "video_ms_per_frame": rec["video_seconds"] * 1e3 / n,
+              "read_ms_per_frame": stats["read_seconds"] * 1e3 / n,
+              "peak_memory_bytes": peak,
+              "mota": metrics["overall"].get("mota")})
+        launched[dtype] = count
+    emit(band_times())
+    return launched
+
+
+def band_times(tracks: int = 40, reps: int = 5) -> dict:
+    """Host ms of one ``plot_tracking`` board of ``tracks`` seeded boxes on
+    a ``VISUAL_SIZE`` frame, its thickness-2 rectangles drawn as slices
+    (``visualize._band``, what the boards run) and through the general
+    polygon fill (``_thick_line``, the same pixels; tests/test_torch_port_
+    visualize.py), alternating, the median of ``reps`` boards each."""
+    rng = np.random.RandomState(SEED + 9)
+    frame = rng.randint(0, 256, VISUAL_SIZE + (3,)).astype(np.uint8)
+    h, w = VISUAL_SIZE
+    x, y = rng.uniform(0, w - 100, tracks), rng.uniform(0, h - 100, tracks)
+    boxes = [{"bbox": [x0, y0, x0 + bw, y0 + bh], "tracking_id": i + 1}
+             for i, (x0, y0, bw, bh) in enumerate(zip(
+                 x, y, rng.uniform(20, 300, tracks),
+                 rng.uniform(40, 400, tracks)))]
+    band = visualize._band
+
+    def general(img, p0, p1, color):
+        visualize._thick_line(img, p0, p1, color, 2, False)
+
+    times = {"band": [], "polygon": []}
+    try:
+        for _ in range(reps):
+            for name, fn in (("band", band), ("polygon", general)):
+                visualize._band = fn
+                t0 = time.perf_counter()
+                visualize.plot_tracking(frame, boxes)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        visualize._band = band
+    return {"phase": "visual_band", "tracks": tracks,
+            "frame": list(VISUAL_SIZE),
+            "board_ms_band": statistics.median(times["band"]),
+            "board_ms_polygon": statistics.median(times["polygon"])}
+
+
+def coco_phase() -> dict:
+    """Slice 15's datasets: a COCO 2017 layout of videos under
+    ``build/coco/`` (``layout_coco``: 480x640 PNG frames, COCO's 80
+    category ids, six moving boxes per video; train 2 videos x 6 frames,
+    val 1 x 4), then
+
+    * ``python -m deft_tpu_torch.train --dataset coco`` at bf16, batch 4
+      at COCO's 512x512, 80 classes, ``COCO_TRAIN_ITERS`` steps, seeded
+      weights (``train_line``: 128 T4 and 128 T5 launches per step,
+      finite losses, ``model_last.pth``);
+    * the test line on the val split at bf16 with that ``model_last``,
+      its heatmap raised (``raise_class_heatmaps``), through the runner
+      (11 T1 + 5 T4 per frame): results for every frame,
+      ``results_coco.json`` and ``tools/eval_coco.py``'s 12 stats;
+    * one ``--dataset custom`` frame (``--num_classes 80`` over the val
+      images, a json of its first image): tracked (16 launches), then
+      ``run_eval`` raises, as the JAX ``CustomDataset``'s does.
+
+    The DCNv2 layers of the lines, at 512x512, are checked against
+    ``COCO_LAYERS``, the kernel phase's table for them.  Returns the
+    launches per run."""
+    import shutil
+
+    shutil.rmtree(COCO_DIR, ignore_errors=True)
+    coco = COCO_DIR / "data" / "coco"
+    layout_coco(coco, "train", COCO_CATEGORIES, videos=2, frames=6,
+                size=COCO_SIZE, seed=SEED + 7, objects=6)
+    val = layout_coco(coco, "val", COCO_CATEGORIES, videos=1, frames=4,
+                      size=COCO_SIZE, seed=SEED + 8, objects=6)
+    common = ["--compute_dtype", "bfloat16", "--data_dir",
+              str(COCO_DIR / "data"), "--gpus", "0"]
+    train = ["tracking", "--exp_id", "coco", "--dataset", "coco",
+             "--batch_size", "4", "--num_epochs", "1", "--num_iters",
+             str(COCO_TRAIN_ITERS), "--num_workers", "1", "--exp_dir",
+             str(COCO_DIR / "exp")] + common
+    row = train_line("coco", train, 16 * 4 * 2, COCO_TRAIN_ITERS)
+    row["phase"] = "coco_train"
+    emit(row)
+    launched = {"train": row["launches"]}
+    # three steps from seeded weights leave the heatmap near its prior: the
+    # test lines load model_last with its heads raised as the cli phase
+    # raises seeded ones (raise_class_heatmaps, on the first val frame)
+    blob = json.loads(val.read_text())
+    first = blob["images"][0]
+    cfg = parse_config(["tracking", "--dataset", "coco"] + common)[0]
+    train_cfg = parse_config(train)[0]
+    det = Detector(cfg.replace(
+        compute_dtype="float32",
+        load_model=str(COCO_DIR / "exp" / "tracking" / "coco"
+                       / "model_last.pth")))
+    image = det.pre_process(imread(str(coco / "val2017"
+                                       / first["file_name"])))[0]
+    shapes = dcn_layer_shapes(det.model, image)
+    if (shapes != Counter({l[:4]: l[4] for l in COCO_LAYERS})
+            or {(train_cfg.input_h, train_cfg.input_w),
+                (cfg.input_h, cfg.input_w)} != {(512, 512)}):
+        raise AssertionError(f"coco DCN layers {dict(shapes)} at "
+                             f"{cfg.input_h}x{cfg.input_w} (train "
+                             f"{train_cfg.input_h}x{train_cfg.input_w}) are "
+                             f"not COCO_LAYERS")
+    raise_class_heatmaps(det.model, image)
+    model = COCO_DIR / "model_test.pth"
+    torch.save({"epoch": 0, "state_dict": {
+        k: v.cpu() for k, v in det.model.state_dict().items()}}, model)
+    del det
+
+    per_frame = {("dcn_sample", "bfloat16"): 11,
+                 ("dcn_sample_onehot", "bfloat16"): 5}
+    test = ["tracking", "--exp_id", "coco", "--dataset", "coco",
+            "--load_model", str(model), "--save_results", "--exp_dir",
+            str(COCO_DIR / "exp_test")] + common
+    metrics, stats, count, seen, peak, _ = cli_run(test)
+    n = stats["frames"]
+    want = {k: v * n for k, v in per_frame.items()}
+    save = Path(parse_config(test)[0].save_dir)
+    results = json.loads((save / "save_results_coco.json").read_text())
+    detections = json.loads((save / "results_coco.json").read_text())
+    if (n != 4 or seen != want or sorted(metrics) != sorted(COCO_STATS)
+            or not all(math.isfinite(v) for v in metrics.values())
+            or len(results) != n):
+        raise AssertionError(f"coco test line: {n} frames, launches {seen} "
+                             f"(expected {want}), {len(results)} results, "
+                             f"stats {metrics}")
+    emit({"phase": "coco_test", "argv": test, "frames": n,
+          "launches": count, "items": sum(len(v) for v in results.values()),
+          "results_coco_json": len(detections), "stats": metrics,
+          "ms_per_frame": stats["seconds"] * 1e3 / n,
+          "read_ms_per_frame": stats["read_seconds"] * 1e3 / n,
+          "peak_memory_bytes": peak})
+    launched["test"] = count
+
+    custom_json = COCO_DIR / "custom.json"
+    custom_json.write_text(json.dumps({
+        "images": [first], "annotations": [], "videos": blob["videos"],
+        "categories": [{"id": i, "name": str(i)} for i in range(1, 81)]}))
+    custom = ["tracking", "--exp_id", "custom", "--dataset", "custom",
+              "--num_classes", "80", "--custom_dataset_img_path",
+              str(coco / "val2017"), "--custom_dataset_ann_path",
+              str(custom_json), "--load_model", str(model),
+              "--save_results", "--exp_dir", str(COCO_DIR / "exp_test")
+              ] + common
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            port_test.main(custom)
+    except NotImplementedError as e:
+        if "no bundled evaluator" not in str(e):
+            raise
+    else:
+        raise AssertionError("the custom dataset's run_eval did not raise")
+    count = launches()
+    saved = json.loads((Path(parse_config(custom)[0].save_dir)
+                        / "save_results_custom.json").read_text())
+    if list(saved) != [str(first["id"])] or any(
+            count[k] != v for (k, _), v in per_frame.items()):
+        raise AssertionError(f"custom frame: results {list(saved)}, "
+                             f"launches {count}")
+    emit({"phase": "custom_test", "argv": custom, "frames": 1,
+          "launches": count, "items": len(saved[str(first["id"])]),
+          "run_eval": "NotImplementedError, as the JAX CustomDataset"})
+    launched["custom"] = count
+    return launched
+
+
+def bench_dcn_phase(rows) -> dict:
+    """``python -m deft_tpu_torch.tools.bench_dcn --iters 20 --regimes
+    trained --radius 4`` in process (its rows printed), then its T1 and T2
+    (float32 x) and T4 (bf16 x) per layer against the kernel phase's time
+    of the same kernel, shape, dtype and offset regime: within
+    ``BENCH_DCN_TOL`` of it.  Returns the ratios."""
+    bench = bench_dcn.main(["--iters", "20", "--regimes", "trained",
+                            "--radius", str(RADIUS)])
+    ratios = {}
+    for r in bench:
+        if r["impl"] not in ("sample", "sample_tap", "onehot"):
+            continue
+        h, w, c, cout = bench_dcn.LAYERS[r["layer"]][:4]
+        (mine,) = [x for x in rows if x["kernel"] == r["kernel"]
+                   and x["model"] == "mot" and x["regime"] == "trained"
+                   and x["dtype"] == r["dtype"]
+                   and (x["H"], x["W"], x["C"], x["Cout"]) == (h, w, c,
+                                                               cout)]
+        ratios[f"{r['kernel']} {r['dtype']} {h}x{w}x{c}->{cout}"] = (
+            r["ms"] / mine["kernel_ms"])
+    worst = max(ratios.values(), key=lambda v: abs(v - 1.0))
+    emit({"phase": "bench_dcn", "rows": len(bench),
+          "model_weighted_ms_per_frame": {
+              f"{impl} r={radius}": ms for (impl, _, radius), ms in
+              bench_dcn.model_weighted(bench).items()},
+          "ms_over_kernel_phase": ratios, "worst_ratio": worst})
+    if abs(worst - 1.0) > BENCH_DCN_TOL:
+        raise AssertionError(f"bench_dcn differs from the kernel phase by "
+                             f"{worst}: {ratios}")
+    return ratios
+
+
 def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  nuscenes_launches, kitti_launches, kitti_runner_launches,
                  public_launches, cli_launches, train_launches,
                  recipe_launches, geometry_rows, ddp_launches,
-                 archs_launches, bench_launches):
+                 archs_launches, bench_launches, visual_launches,
+                 coco_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -3431,7 +3783,12 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     layers the bf16 hybrid gives each) and ResDCN's unclamped neck (T1,
     ResDCN-18's three layers per frame and ResDCN-101's 2048-channel
     one).  The bench phase adds the launches of its runs' timed passes
-    (``python -m deft_tpu_torch.bench``: T1, and T4 at bf16)."""
+    (``python -m deft_tpu_torch.bench``: T1, and T4 at bf16); the visual
+    phase those of the ``--debug 2 --save_video`` line (T1, and T4 at
+    bf16) and the coco phase those of its train line (T4, T5) and test
+    lines (T1, T4); T1, T4 and T5 their sums over the layers of a 512x512
+    COCO frame (``coco_512_per_frame``; T1 on a bf16 x over the bf16
+    hybrid's 11 layers)."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -3650,6 +4007,31 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                               "PipelinedRunner chunk 4, python -m "
                               "deft_tpu_torch.bench)")
             entry.setdefault("launches_by_path", {}).update(bench_paths)
+        slice15_paths = {
+            f"deft_tpu_torch.test --debug 2 --save_video, mot test line, "
+            f"{dtype}, {VISUAL_FRAMES} frames": n[name]
+            for dtype, n in visual_launches.items() if n[name]}
+        slice15_paths.update({
+            label: coco_launches[run][name] for run, label in (
+                ("train", f"deft_tpu_torch.train --dataset coco, bfloat16, "
+                          f"{COCO_TRAIN_ITERS} steps"),
+                ("test", "deft_tpu_torch.test --dataset coco, bfloat16, "
+                         "4 frames"),
+                ("custom", "deft_tpu_torch.test --dataset custom, "
+                           "bfloat16, 1 frame"))
+            if coco_launches[run][name]})
+        if slice15_paths:
+            entry["launches"] += sum(slice15_paths.values())
+            entry["path"] += ("; the visual phase (--debug 2 --save_video) "
+                              "and the coco phase (COCO and custom "
+                              "datasets)")
+            entry.setdefault("launches_by_path", {}).update(slice15_paths)
+        coco = [r for r in mine if r["model"] == "coco"]
+        if coco:
+            entry["coco_512_per_frame"] = {
+                dtype: sums_entry(per_frame_sums(coco, dtype))
+                for dtype in ("float32", "bfloat16")
+                if any(r["dtype"] == dtype for r in coco)}
         dla169 = [r for r in mine if r["model"] == "dla169"]
         if dla169:
             entry["dla169_per_frame"] = {
@@ -3733,6 +4115,12 @@ def main() -> int:
                                  BUILD_DIR.parent / "checkpoint"
                                  / "model_mot.pth")
     lap("bench")
+    visual_launches = visual_phase(CLI_DIR / "weights" / "mot" / "model.pth")
+    lap("visual")
+    coco_launches = coco_phase()
+    lap("coco")
+    bench_dcn_phase(rows)
+    lap("bench_dcn")
     emit({"phase": "seconds", **seconds})
 
     print(smi, flush=True)
@@ -3741,7 +4129,8 @@ def main() -> int:
                       nuscenes_launches, kitti_launches,
                       kitti_runner_launches, public_launches, cli_launches,
                       train_launches, recipe_launches, geometry_rows,
-                      ddp_launches, archs_launches, bench_launches))
+                      ddp_launches, archs_launches, bench_launches,
+                      visual_launches, coco_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

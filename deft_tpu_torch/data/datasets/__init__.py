@@ -7,9 +7,10 @@ and the nuScenes submission's class families
 (``deft_tpu/data/datasets/nuscenes.py:22-27``).  ``get_dataset`` returns the
 class that ``test.py`` and ``train.py`` read a split with:
 ``mot.MOTDataset``, ``kitti_tracking.KITTITrackingDataset`` or
-``nuscenes.NuScenesDataset``, and for ``prediction_model`` the motion
-model's ``trajectory_dataset.TrajectoryDataset`` (each imported when asked
-for).  COCO and custom datasets are not ported yet (ROADMAP.md, queue A.6).
+``nuscenes.NuScenesDataset``, ``coco_det.CocoDataset``,
+``coco_det.CustomDataset`` (``custom.py``), and for ``prediction_model``
+the motion model's ``trajectory_dataset.TrajectoryDataset`` (each imported
+when asked for).
 """
 
 from __future__ import annotations
@@ -152,8 +153,10 @@ def get_dataset(name: str, prediction_model: bool = False):
     if name == "nuscenes":
         from deft_tpu_torch.data.datasets.nuscenes import NuScenesDataset
         return NuScenesDataset
-    if name in _INFOS:
-        raise NotImplementedError(
-            f"the {name!r} dataset is not ported yet (ROADMAP.md, queue "
-            "A.6: COCO and custom datasets)")
+    if name == "coco":
+        from deft_tpu_torch.data.datasets.coco_det import CocoDataset
+        return CocoDataset
+    if name == "custom":
+        from deft_tpu_torch.data.datasets.custom import CustomDataset
+        return CustomDataset
     raise KeyError(name)

@@ -1,6 +1,7 @@
 """Monocular 3-D geometry on the host, copied from
 ``deft_tpu/inference/ddd.py``: the corners of a 3-D box in the camera
-frame, unprojection of a 2-D centre and depth, alpha -> rot_y, the 8-bin rot head's alpha, and the greedy 2-D NMS the
+frame, their projection to pixels, unprojection of a 2-D centre and
+depth, alpha -> rot_y, the 8-bin rot head's alpha, and the greedy 2-D NMS the
 nuScenes detector applies per class.  Numpy, small-N work.
 """
 
@@ -25,6 +26,15 @@ def compute_box_3d(dim, location, rotation_y):
     ``location``, yawed by ``rotation_y`` about the camera's y axis."""
     corners = compute_corners_3d(dim, rotation_y)
     return corners + np.asarray(location, np.float32).reshape(1, 3)
+
+
+def project_to_image(pts_3d, p):
+    """[N, 3] camera points + [3, 4] projection -> [N, 2] pixels
+    (``deft_tpu/inference/ddd.py:30``)."""
+    n = pts_3d.shape[0]
+    homo = np.concatenate([pts_3d, np.ones((n, 1), np.float32)], axis=1)
+    pts_2d = homo @ p.T
+    return pts_2d[:, :2] / pts_2d[:, 2:]
 
 
 def unproject_2d_to_3d(pt_2d, depth, p):

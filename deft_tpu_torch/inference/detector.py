@@ -1,5 +1,6 @@
 """Per-frame inference runtime, copied from ``deft_tpu/inference/detector.py``
-(MOT, KITTI tracking and nuScenes).
+(MOT, KITTI tracking, nuScenes, and COCO-format datasets, which track as
+MOT does).
 
 One frame: ``pre_process`` warps and normalizes it on the detector's device
 (the separable two-matmul warp of ``ops/warp.py`` in place of the JAX
@@ -36,6 +37,16 @@ model path (``detect``'s ``parity_tf``) and the public one.
 network tolerantly, ``cfg.load_model_traj`` a reference ``DecoderRNN``
 ``.pth`` that the LSTM motion model loads strictly (``checkpoint.py``).
 
+``cfg.debug`` >= 1 saves a debug board per frame of ``run``
+(``show_debug``, ``deft_tpu/inference/detector.py:374-417``) to
+``<save_dir>/debug/<n:05d>_{generic,previous}.png``: the frame with its
+detections, track ids and any motion arrows, and the frame before it; at
+``debug`` >= 2 also ``pred_hm``, the per-class colormap of the raw
+heatmap (a second forward of the network at batch 1 on the detector's
+device, through the same DCN route as ``detect``) over the warped input.
+The boards are drawn in numpy (``utils/visualize.py``).  The public branch
+and ``run_multi`` save none, as in the JAX package.
+
 ``timers`` keeps the JAX ``run``'s host stages (pre, net, post, track, tot;
 ``timers.mean_ms()``).  On the card a stage ends when the host moves on:
 device work queued in one stage may be waited for in a later one.
@@ -43,6 +54,7 @@ device work queued in one stage may be waited for in a later one.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -70,8 +82,6 @@ from deft_tpu_torch.tracking.tracker import STrack, Tracker
 
 MEAN = np.array([0.40789654, 0.44719302, 0.47026115], np.float32)
 STD = np.array([0.28863828, 0.27408164, 0.27809835], np.float32)
-
-_LATER = "is not ported yet (ROADMAP.md, queue A)"
 
 
 def public_det_centers(cur_dets, meta, max_object: int,
@@ -139,10 +149,6 @@ class Detector:
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
                  device="cuda", motion_state_dict: Optional[dict] = None):
-        if cfg.dataset not in ("mot", "kitti_tracking", "nuscenes"):
-            raise NotImplementedError(f"dataset {cfg.dataset!r} {_LATER}")
-        if cfg.debug:
-            raise NotImplementedError(f"debug {_LATER}")
         require_deft_arch(cfg.arch, "Detector")
         self.cfg = cfg
         self.dataset = cfg.dataset
@@ -166,6 +172,9 @@ class Detector:
         self._std = torch.as_tensor(STD, device=self.device)
         self.ids = IdAllocator()
         self.timers = StageTimers(("pre", "net", "post", "track", "tot"))
+        self.debugger = None
+        self._debug_cnt = 0
+        self._pre_image_ori = None
         self.reset_tracking()
 
     # ---- lifecycle -----------------------------------------------------------
@@ -266,6 +275,13 @@ class Detector:
                 meta[key] = input_meta[key]
         return images, meta
 
+    @staticmethod
+    def _read(path: str) -> np.ndarray:
+        image = imread(path)
+        if image is None:
+            raise FileNotFoundError(f"cannot read image {path}")
+        return image
+
     def _prepare(self, image_or_frame, meta):
         """A frame as ``run`` takes it -> (normalized [1, H, W, 3] on the
         device, meta).  A path is read with ``image_io.imread`` (BGR, as
@@ -273,10 +289,7 @@ class Detector:
         keeps its own meta; public detections given in ``meta`` pass into
         it."""
         if isinstance(image_or_frame, str):
-            image = imread(image_or_frame)
-            if image is None:
-                raise FileNotFoundError(f"cannot read image {image_or_frame}")
-            return self.pre_process(image, meta)
+            return self.pre_process(self._read(image_or_frame), meta)
         if not isinstance(image_or_frame, dict):
             return self.pre_process(image_or_frame, meta)
         images, frame_meta = image_or_frame["images"], image_or_frame["meta"]
@@ -340,13 +353,19 @@ class Detector:
         frame without them takes the model path.
         """
         t0 = time.perf_counter()
-        images, meta = self._prepare(image_or_frame, meta)
+        image = image_or_frame
+        if isinstance(image_or_frame, str):
+            image = self._read(image_or_frame)
+        images, meta = self._prepare(image, meta)
         self.timers.add("pre", time.perf_counter() - t0)
         if self.cfg.public_det and "cur_dets" in meta:
             online = self._run_public(images, meta)
         else:
-            online = self.run_multi([{"images": images, "meta": meta}],
-                                    image_infos=[image_info])[0]
+            (online,), (results,) = self._detect_and_track(
+                [{"images": images, "meta": meta}], None, [image_info])
+            if self.cfg.debug >= 1:
+                self.show_debug(None if isinstance(image, dict) else image,
+                                images, results, online)
         self.timers.add("tot", time.perf_counter() - t0)
         return online
 
@@ -382,6 +401,13 @@ class Detector:
         that camera's tracker update.  Track objects are live and later
         cameras' updates mutate them, so a caller that serializes tracks
         must do it through this hook, not after the return."""
+        return self._detect_and_track(images_or_frames, metas, image_infos,
+                                      materialize)[0]
+
+    def _detect_and_track(self, images_or_frames, metas=None,
+                          image_infos=None, materialize=None):
+        """``run_multi``'s step: (the online lists, each camera's
+        post-processed detections)."""
         n = len(images_or_frames)
         metas = metas or [None] * n
         image_infos = image_infos or [None] * n
@@ -391,7 +417,7 @@ class Detector:
         dets, emb = self.process(torch.cat(batch), b_metas[0])
         self.timers.add("net", time.perf_counter() - t1)
 
-        online_per_cam = []
+        online_per_cam, results_per_cam = [], []
         for b in range(n):
             t0 = time.perf_counter()
             dets_b = {k: v[b: b + 1] for k, v in dets.items()}
@@ -403,7 +429,65 @@ class Detector:
             self.timers.add("track", time.perf_counter() - t1)
             online_per_cam.append(materialize(online) if materialize
                                   else online)
-        return online_per_cam
+            results_per_cam.append(results)
+        return online_per_cam, results_per_cam
+
+    # ---- --debug board (deft_tpu/inference/detector.py:374-417) -------------
+
+    @torch.no_grad()
+    def debug_heatmap(self, images) -> np.ndarray:
+        """The sigmoid of the network's raw ``hm`` for a batch-1 input
+        [1, H, W, 3]: [H/4, W/4, C] float32 on the host (the JAX
+        ``_debug_hm``, ``detector.py:137-143``)."""
+        outputs, _ = self.model(torch.as_tensor(images, dtype=torch.float32,
+                                                device=self.device))
+        return torch.sigmoid(outputs["hm"])[0].cpu().numpy()
+
+    def show_debug(self, image, images, results, online):
+        """Build and save the debug board of one frame (module docstring).
+        ``image`` is the original uint8 frame (numpy or tensor), or None
+        for a prefetched one (then the normalized input, denormalized,
+        stands in)."""
+        from deft_tpu_torch.utils.visualize import Debugger
+
+        if self.debugger is None:
+            self.debugger = Debugger(self.cfg, self.info)
+        dbg = self.debugger
+        dbg.clear()
+        warped = None
+        if image is None or self.cfg.debug >= 2:
+            warped = np.clip((torch.as_tensor(images)[0].float().cpu().numpy()
+                              * STD + MEAN) * 255.0, 0, 255).astype(np.uint8)
+        if image is None:
+            image = warped
+        image = (image.cpu().numpy() if torch.is_tensor(image)
+                 else np.asarray(image))
+        dbg.add_img(image, "generic")
+        dbg.add_img(self._pre_image_ori if self._pre_image_ori is not None
+                    else image, "previous")
+        self._pre_image_ori = image
+        for item in results:
+            if item.get("score", 0.0) < self.cfg.vis_thresh:
+                continue
+            if "bbox" in item:
+                dbg.add_coco_bbox(item["bbox"], item["class"] - 1,
+                                  item.get("score", 0.0), img_id="generic")
+            if "tracking" in item and "ct" in item:
+                ct = np.asarray(item["ct"], np.float64)
+                dbg.add_arrow(ct, ct + np.asarray(item["tracking"]),
+                              img_id="generic")
+            if "hps" in item:
+                dbg.add_coco_hp(item["hps"], img_id="generic")
+        for t in online:
+            tl = t.tlwh
+            dbg.add_tracking_id((tl[0] + tl[2] / 2, tl[1] + tl[3] / 2),
+                                t.track_id, img_id="generic")
+        if self.cfg.debug >= 2:
+            dbg.add_blend_img(warped, dbg.gen_colormap(
+                self.debug_heatmap(images)), "pred_hm")
+        self._debug_cnt += 1
+        dbg.save_all_imgs(os.path.join(self.cfg.save_dir, "debug"),
+                          prefix=f"{self._debug_cnt:05d}_")
 
     # ---- nuScenes per-class branch (reference detector.py:200-341) -----------
 

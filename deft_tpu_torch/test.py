@@ -14,10 +14,20 @@ split's images grouped by video (``group_videos``; sample-major on
 nuScenes), frames read with ``data/image_io.imread`` (a frame that does not
 read is skipped), then
 
-* MOT and KITTI: ``track_videos`` through a ``PipelinedRunner`` (the
-  runner resets per video; KITTI items take class 2);
+* MOT, KITTI, COCO and custom datasets: ``track_videos`` through a
+  ``PipelinedRunner`` (the runner resets per video; KITTI items take
+  class 2);
 * nuScenes: ``track_nuscenes``, each sample's cameras through one
-  ``Detector.run_multi`` with their ``calib``.
+  ``Detector.run_multi`` with their ``calib``;
+* under ``--debug`` > 0 (``test.py:98-110``), every dataset frame by frame
+  through ``track_videos_detector`` -> ``Detector.run``, which saves the
+  debug boards under ``<save_dir>/debug/`` (at ``--debug 2`` with the
+  raw heatmap's board, a second forward on the card).
+
+``--save_video`` writes each video's frames with their tracks drawn
+(``utils/visualize.py::plot_tracking``) to ``<save_dir>/video_<id>.mp4``
+(``VideoWriter``: where cv2 is missing, PNG frames in
+``<save_dir>/video_<id>/``).
 
 Under ``--public_det --load_results <json>`` the file's detections
 (``data/public_dets.py::load_results``) feed the frames they name.  The
@@ -31,9 +41,7 @@ The JAX loop reads each video's first frame to set the detector's
 and runner take every frame's own size (its ``meta``, the ``parity_tf`` of
 ``embed_parity`` included), so there is no probe.  Its per-frame ``calib``
 reaches only the 3-D decoding, so the runner's 2-D lines go without it and
-the nuScenes rig takes it from each image info.  ``--debug`` and
-``--save_video`` need the visualizer, which is not ported yet
-(ROADMAP.md, queue A.4).
+the nuScenes rig and ``Detector.run`` take it from each image info.
 """
 
 from __future__ import annotations
@@ -96,10 +104,6 @@ def main(argv=None, stats: Optional[dict] = None):
 
     cfg, extras = parse_config(argv)
     cfg = cfg.replace(dataset=cfg.test_dataset or cfg.dataset)
-    if cfg.debug > 0 or cfg.save_video:
-        raise NotImplementedError(
-            "--debug and --save_video need the visualizer, which is not "
-            "ported yet (ROADMAP.md, queue A.4)")
 
     import torch
 
@@ -108,8 +112,10 @@ def main(argv=None, stats: Optional[dict] = None):
     from deft_tpu_torch.inference.detector import Detector
     from deft_tpu_torch.inference.runner import PipelinedRunner
     from deft_tpu_torch.models.factory import resolve_device
-    from deft_tpu_torch.track import track_nuscenes, track_videos
+    from deft_tpu_torch.track import (track_nuscenes, track_videos,
+                                      track_videos_detector)
     from deft_tpu_torch.utils.logger import Logger
+    from deft_tpu_torch.utils.visualize import VideoWriter, plot_tracking
 
     device = resolve_device(extras["device"])
     logger = Logger(cfg)
@@ -120,7 +126,9 @@ def main(argv=None, stats: Optional[dict] = None):
     public = (load_results(cfg.load_results)
               if cfg.public_det and cfg.load_results else None)
     nuscenes = cfg.dataset == "nuscenes"
-    runner = None if nuscenes else PipelinedRunner(detector)
+    # the debug boards come from Detector.run: no runner, no batched rig
+    debug = cfg.debug > 0
+    runner = None if nuscenes or debug else PipelinedRunner(detector)
     cls_default = 2 if cfg.dataset == "kitti_tracking" else 1
     reader = FrameReader(dataset.img_dir)
 
@@ -137,16 +145,34 @@ def main(argv=None, stats: Optional[dict] = None):
     t_start = time.perf_counter()
     with prof_ctx as prof:
         for video_id, infos in group_videos(dataset, nuscenes).items():
-            if nuscenes:
+            writer = sink = None
+            if cfg.save_video:
+                writer = VideoWriter(os.path.join(cfg.save_dir,
+                                                  f"video_{video_id}.mp4"))
+
+                def sink(image_id, frame, tracks, writer=writer):
+                    writer.write(plot_tracking(frame, tracks,
+                                               frame_id=image_id))
+            if nuscenes and not debug:
                 results.update(track_nuscenes(
-                    detector, [(video_id, reader.video(infos, True))]))
-                logger.write(f"video {video_id}: {len(infos)} frames done "
-                             f"(batched rig)")
-                continue
-            results.update(track_videos(
-                runner, [(video_id, reader.video(infos))], cls_default,
-                public_dets=public))
-            logger.write(f"video {video_id}: {len(infos)} frames done")
+                    detector, [(video_id, reader.video(infos, True))],
+                    frame_sink=sink))
+                done = "(batched rig)"
+            elif runner is not None:
+                results.update(track_videos(
+                    runner, [(video_id, reader.video(infos))], cls_default,
+                    public_dets=public, frame_sink=sink))
+                done = ""
+            else:
+                results.update(track_videos_detector(
+                    detector, [(video_id, reader.video(infos))], cls_default,
+                    public_dets=public, frame_sink=sink,
+                    image_infos={info["id"]: info for info in infos}))
+                done = ""
+            if writer is not None:
+                writer.release()
+            logger.write(f"video {video_id}: {len(infos)} frames done "
+                         f"{done}".rstrip())
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t_start

@@ -12,6 +12,9 @@ submission.
 * both take ``public_dets`` ({image id: [det dicts]}, from
   ``data/public_dets.py``) for ``cfg.public_det``: each frame's boxes go in
   as ``meta["cur_dets"]`` (``test.py:181-182``);
+* every loop takes ``frame_sink``, called with (image id, frame, tracks)
+  for each frame once its tracks are known, in frame order: the
+  ``--save_video`` writer of ``test.py`` (``test.py:157-164, :190-211``);
 * ``track_nuscenes`` drives ``Detector.run_multi`` over nuScenes scenes the
   way ``test.py:134-170`` does: each scene's frames in sample-major order,
   every sample's cameras as one batch;
@@ -33,7 +36,8 @@ from __future__ import annotations
 import os
 from collections import defaultdict
 from itertools import groupby
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 
@@ -77,6 +81,7 @@ def tracks_to_results(online, cls_default: int = 1) -> List[dict]:
 
 
 Video = Tuple[object, Sequence[Tuple[int, np.ndarray]]]
+FrameSink = Callable[[int, np.ndarray, list], None]
 
 
 def _frame_meta(public_dets: Optional[Mapping[int, Sequence[dict]]],
@@ -87,41 +92,59 @@ def _frame_meta(public_dets: Optional[Mapping[int, Sequence[dict]]],
 
 
 def track_videos(runner, videos: Iterable[Video], cls_default: int = 1,
-                 public_dets: Optional[Mapping[int, Sequence[dict]]] = None
+                 public_dets: Optional[Mapping[int, Sequence[dict]]] = None,
+                 frame_sink: Optional[FrameSink] = None
                  ) -> Dict[int, List[dict]]:
     """``videos``: (video id, [(image id, decoded BGR frame), ...] in frame
     order) pairs; ``public_dets``: {image id: public detections}.  Returns
     {image id: submission items}."""
     results: Dict[int, List[dict]] = {}
+
+    def finish(pending, tracks):
+        image_id, image = pending.pop(0)
+        results[image_id] = tracks_to_results(tracks, cls_default)
+        if frame_sink is not None:
+            frame_sink(image_id, image, tracks)
+
     for _, frames in videos:
         runner.reset()
-        pending: List[int] = []
+        pending: List[Tuple[int, Optional[np.ndarray]]] = []
         for image_id, image in frames:
-            pending.append(image_id)
+            pending.append((image_id, image if frame_sink else None))
             done = runner.submit(image, _frame_meta(public_dets, image_id))
             if done is None:
                 continue
             for tracks in (done if runner.chunk > 1 else [done]):
-                results[pending.pop(0)] = tracks_to_results(tracks,
-                                                            cls_default)
+                finish(pending, tracks)
         for tracks in runner.flush():
-            results[pending.pop(0)] = tracks_to_results(tracks, cls_default)
+            finish(pending, tracks)
     return results
 
 
 def track_videos_detector(
         detector, videos: Iterable[Video], cls_default: int = 1,
-        public_dets: Optional[Mapping[int, Sequence[dict]]] = None
+        public_dets: Optional[Mapping[int, Sequence[dict]]] = None,
+        frame_sink: Optional[FrameSink] = None,
+        image_infos: Optional[Mapping[int, dict]] = None
 ) -> Dict[int, List[dict]]:
     """``track_videos`` through ``Detector.run``: trackers reset per
     sequence, one ``run`` per frame.  A frame may be a decoded BGR frame,
-    an image path or ``run``'s prefetched ``{"images", "meta"}`` form."""
+    an image path or ``run``'s prefetched ``{"images", "meta"}`` form.
+    ``image_infos`` ({image id: image info}) gives each frame its
+    ``calib`` and ``run`` its ``image_info`` (``test.py:171-197``; a
+    nuScenes frame needs them)."""
     results: Dict[int, List[dict]] = {}
     for _, frames in videos:
         detector.reset_tracking()
         for image_id, image in frames:
-            online = detector.run(image, _frame_meta(public_dets, image_id))
+            meta = _frame_meta(public_dets, image_id)
+            info = image_infos.get(image_id) if image_infos else None
+            if info is not None and "calib" in info:
+                meta = {**(meta or {}), "calib": info["calib"]}
+            online = detector.run(image, meta, image_info=info)
             results[image_id] = tracks_to_results(online, cls_default)
+            if frame_sink is not None:
+                frame_sink(image_id, image, online)
     return results
 
 
@@ -136,13 +159,16 @@ def sample_major(frames: Iterable[Tuple[dict, np.ndarray]]):
                                          f[0].get("sensor_id", 1)))
 
 
-def track_nuscenes(detector, scenes: Iterable[NuScene]
+def track_nuscenes(detector, scenes: Iterable[NuScene],
+                   frame_sink: Optional[FrameSink] = None
                    ) -> Dict[int, List[dict]]:
     """``scenes``: (scene id, [(image info, decoded BGR frame), ...]) pairs;
     an image info holds the converter's ``id``, ``frame_id``,
     ``sensor_id``, ``calib`` and camera / ego-pose records.  Trackers reset
     per scene; each sample's cameras go through one ``run_multi``.  Returns
-    {image id: submission items}."""
+    {image id: submission items}.  ``frame_sink`` gets each camera's
+    tracks after the sample, as the JAX loop draws them (``test.py:
+    157-164``)."""
     results: Dict[int, List[dict]] = {}
     for _, frames in scenes:
         detector.reset_tracking()
@@ -153,9 +179,12 @@ def track_nuscenes(detector, scenes: Iterable[NuScene]
                 list(images),
                 [{"calib": info["calib"]} if "calib" in info else {}
                  for info in infos],
-                list(infos), materialize=tracks_to_results)
-            for info, items in zip(infos, online):
+                list(infos), materialize=lambda tracks: (
+                    tracks_to_results(tracks), list(tracks)))
+            for info, image, (items, tracks) in zip(infos, images, online):
                 results[info["id"]] = items
+                if frame_sink is not None:
+                    frame_sink(info["id"], image, tracks)
     return results
 
 

@@ -11,8 +11,8 @@ are added in slice order.  The kernel runs only on the card; this file holds
 what decides its grid and its arithmetic in plain code:
 
 * ``plan_backward`` at every DLA-34 layer shape ``chip_smoke.py`` runs (a
-  544x960 MOT frame, a 384x1280 KITTI frame, a 448x800 nuScenes camera) at
-  radius 4, for a float32 and a bfloat16 x: a plan that fits a block's
+  544x960 MOT frame, a 384x1280 KITTI frame, a 448x800 nuScenes camera, a
+  512x512 COCO frame) at radius 4, for a float32 and a bfloat16 x: a plan that fits a block's
   shared memory, covers every pixel and channel once, and launches a block
   on every SM of an H100, each block taking 1, 2, 4 or 8 of the slices;
   none (the unclamped route) for a negative radius or a window that does
@@ -42,14 +42,15 @@ import torch
 from deft_tpu.ops.pallas_dcn import deform_conv_onehot
 from deft_tpu_torch.csrc import build
 from deft_tpu_torch.ops import cuda_dcn
-from deft_tpu_torch.tools import ablate_backward, ablate_fused
+from deft_tpu_torch.tools import ablate_backward, ablate_fused, bench_dcn
 
 H100_SMS = 132
 
 
 def _smoke_layers():
-    """(H, W, C) of chip_smoke.py's LAYERS, KITTI_LAYERS and
-    NUSCENES_LAYERS, read from its source (importing it loads every phase's
+    """(H, W, C) of chip_smoke.py's LAYERS (``bench_dcn.LAYERS``, which it
+    imports), KITTI_LAYERS, NUSCENES_LAYERS and COCO_LAYERS, the last
+    three read from its source (importing it loads every phase's
     modules)."""
     tree = ast.parse((Path(__file__).resolve().parents[1]
                       / "chip_smoke.py").read_text())
@@ -57,10 +58,11 @@ def _smoke_layers():
     for node in tree.body:
         if (isinstance(node, ast.Assign) and len(node.targets) == 1
                 and isinstance(node.targets[0], ast.Name)
-                and node.targets[0].id in ("LAYERS", "KITTI_LAYERS",
-                                           "NUSCENES_LAYERS")):
+                and node.targets[0].id in ("KITTI_LAYERS", "NUSCENES_LAYERS",
+                                           "COCO_LAYERS")):
             layers[node.targets[0].id] = ast.literal_eval(node.value)
     assert len(layers) == 3
+    layers["LAYERS"] = bench_dcn.LAYERS
     return sorted({tuple(shape[:3]) for rows in layers.values()
                    for shape in rows})
 

@@ -82,10 +82,15 @@ def test_main_on_the_default_device_raises_without_cuda(tmp_path,
 
 
 def test_debug_and_save_video_are_refused(tmp_path):
-    for flag in (["--debug", "1"], ["--save_video"]):
-        with pytest.raises(NotImplementedError, match="visualizer"):
+    """The visualizer is ported: ``--debug`` and ``--save_video`` are no
+    longer refused, and a line with them goes on to read its dataset
+    (``tests/test_torch_port_debug.py`` runs them against the JAX
+    package)."""
+    for flag in (["--debug", "1"], ["--debug", "2"], ["--save_video"]):
+        with pytest.raises(FileNotFoundError, match="val_half.json"):
             port_test.main(["tracking", "--gpus", "-1", "--exp_dir",
-                            str(tmp_path)] + flag)
+                            str(tmp_path), "--dataset_version", "17halfval",
+                            "--data_dir", str(tmp_path / "none")] + flag)
 
 
 NEW_MODULES = ("deft_tpu_torch.cli", "deft_tpu_torch.test",
@@ -104,7 +109,16 @@ NEW_MODULES = ("deft_tpu_torch.cli", "deft_tpu_torch.test",
                "deft_tpu_torch.train.prediction",
                "deft_tpu_torch.data.trajectory_dataset",
                "deft_tpu_torch.data.synthetic_nuscenes",
-               "deft_tpu_torch.tools.convert_nuscenes")
+               "deft_tpu_torch.tools.convert_nuscenes",
+               "deft_tpu_torch.utils.visualize",
+               "deft_tpu_torch.data.datasets.coco_det",
+               "deft_tpu_torch.data.datasets.custom",
+               "deft_tpu_torch.tools.eval_coco",
+               "deft_tpu_torch.tools.convert_mot_to_coco",
+               "deft_tpu_torch.tools.convert_mot_det_to_results",
+               "deft_tpu_torch.tools.extract_nuscenes_difficulty_splits",
+               "deft_tpu_torch.tools.bench_dcn",
+               "deft_tpu_torch.tools.make_glyph_atlas")
 
 
 def test_new_modules_import_no_jax_cv2_or_pil():

@@ -8,7 +8,10 @@ only, no cv2 and no JAX (the card's machine has neither).
 * ``layout_kitti``: a KITTI tracking sequence through the port's
   ``tools/convert_kittitrack_to_coco.py``;
 * ``layout_nuscenes_train``: a six-camera nuScenes scene, its v1.0 tables
-  and ``deft_tpu_torch/tools/convert_nuscenes.py``'s ``train.json``.
+  and ``deft_tpu_torch/tools/convert_nuscenes.py``'s ``train.json``;
+* ``layout_coco``: one split of a COCO-format dataset of videos
+  (``{split}2017/`` and ``annotations/instances_{split}2017.json``),
+  moving boxes on noise in the given categories.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import contextlib
 import json
 import sys
 from pathlib import Path
+
+import numpy as np
 
 
 def write_pngs(paths_and_frames):
@@ -82,3 +87,45 @@ def layout_nuscenes_train(root: Path, samples: int, size, seed: int,
     with contextlib.redirect_stdout(sys.stderr):
         convert(str(data), "v1.0-trainval", "train.json")
     return data
+
+
+def layout_coco(root: Path, split: str, categories, videos: int = 2,
+                frames: int = 4, size=(64, 96), seed: int = 0,
+                objects: int = 3) -> Path:
+    """One split of a COCO-format dataset in ``root`` (the layout of the
+    JAX ``CocoDataset``): ``{split}2017/v<video>_<frame>.png``, ``objects``
+    boxes per video moving on noise, each in a category of
+    ``categories`` ([{"id", "name"}], in turn), with ``video_id``,
+    ``frame_id`` and ``track_id``; returns the instances json's path."""
+    rng = np.random.RandomState(seed)
+    h, w = size
+    images, anns, vids, pngs = [], [], [], []
+    for v in range(1, videos + 1):
+        vids.append({"id": v, "file_name": f"video{v}"})
+        moving = [(rng.uniform(0.05, 0.6) * w, rng.uniform(0.05, 0.6) * h,
+                   rng.uniform(0.15, 0.3) * w, rng.uniform(0.15, 0.3) * h,
+                   rng.uniform(-0.02, 0.02, 2) * (w, h),
+                   categories[(v * objects + k) % len(categories)]["id"])
+                  for k in range(objects)]
+        for f in range(1, frames + 1):
+            img = rng.randint(30, 80, (h, w, 3)).astype(np.uint8)
+            image_id = len(images) + 1
+            for tid, (x, y, bw, bh, vel, cat) in enumerate(moving, 1):
+                x0, y0 = x + vel[0] * f, y + vel[1] * f
+                img[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = (
+                    rng.randint(120, 255, 3))
+                anns.append({"id": len(anns) + 1, "image_id": image_id,
+                             "category_id": cat, "bbox": [x0, y0, bw, bh],
+                             "area": bw * bh, "iscrowd": 0,
+                             "track_id": 100 * v + tid})
+            name = f"v{v}_{f:03d}.png"
+            pngs.append((root / f"{split}2017" / name, img))
+            images.append({"id": image_id, "file_name": name,
+                           "video_id": v, "frame_id": f,
+                           "height": h, "width": w})
+    write_pngs(pngs)
+    (root / "annotations").mkdir(parents=True, exist_ok=True)
+    path = root / "annotations" / f"instances_{split}2017.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns,
+                                "videos": vids, "categories": categories}))
+    return path

@@ -9,12 +9,15 @@ checkpoints.
 * ``seeded_checkpoint``: the port's seeded network with randomized offset
   convs, box heads biased to an extent and its heatmap rescaled on a frame
   so that detections exist, saved as a reference ``.pth``;
+  ``jax_init_from``: the JAX package loads such a file without its
+  init's compile;
   ``motion_checkpoint``: the LSTM motion model's, from the JAX package's
   seeded ``LSTMMotion`` (``from_jax_motion_variables``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from pathlib import Path
@@ -128,6 +131,33 @@ def seeded_checkpoint(cfg, frame: np.ndarray, path: Path, seed: int = 0,
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     torch.save({"epoch": 0, "state_dict": sd}, path)
     return sd
+
+
+@contextlib.contextmanager
+def jax_init_from(path: Path):
+    """While open, the JAX package's ``init_model`` returns the weights of
+    the port's reference ``.pth`` at ``path`` (``TorchConverter``) instead
+    of a fresh init.  Its ``load_checkpoint`` overlays a ``.pth`` on that
+    init (``convert_torch_checkpoint``), and the port's file holds every
+    parameter, so the loaded weights are the same; the init's jit of the
+    flax forward (~20 s on a worker) is skipped."""
+    import deft_tpu.models.factory as jax_factory
+    from deft_tpu.models.dla import DLA_PLANS
+    from deft_tpu.train.torch_convert import (TorchConverter,
+                                              load_torch_state_dict)
+
+    sd = load_torch_state_dict(str(path))
+    saved = jax_factory.init_model
+
+    def converted(model, cfg, rng=None, batch=1):
+        return TorchConverter(cfg.dataset).convert_dla34(
+            sd, cfg.heads, cfg.dla_node, DLA_PLANS["34"][0])
+
+    jax_factory.init_model = converted
+    try:
+        yield
+    finally:
+        jax_factory.init_model = saved
 
 
 def motion_checkpoint(dataset: str, path: Path) -> None:
