@@ -120,6 +120,13 @@ max_object=100, 50-slot rings) with seeded random weights:
   and ``python -m deft_tpu_torch.tools.bench_dcn --iters 20 --regimes
   trained`` (``bench_dcn_phase``), its T1, T2 and T4 per layer within 25%
   of the kernel phase's;
+* slice 16, the port's no-dataset start (``synth_phase``, after the coco
+  phase): ``deft_tpu_torch.tools.make_synthetic_mot --natural`` writes 12
+  1080x1920 JPEG frames in MOT17's layout, the port's
+  ``convert_mot_to_coco`` indexes them, and the MOT recipe's test line at
+  bf16 tracks the 6 of the val half twice, read through
+  ``image_io.imread`` (11 T1 and 5 T4 per frame); the KITTI (``--rich``) and nuScenes generators
+  write their scenes and the port's converters index them, on the host;
 
 and shows from the launch counters, set to 0 just before each path and read
 just after, that every DCNv2 layer of every frame went through its kernel
@@ -154,6 +161,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -181,7 +189,10 @@ from deft_tpu_torch.models.factory import create_model
 from deft_tpu_torch.ops import cuda_dcn
 from deft_tpu_torch.ops.decode import heat_nms, topk
 from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_separable
-from deft_tpu_torch.tools import bench_dcn
+from deft_tpu_torch.tools import (bench_dcn, convert_kittitrack_to_coco,
+                                  convert_mot_to_coco, convert_nuscenes,
+                                  make_synthetic_kitti, make_synthetic_mot,
+                                  make_synthetic_nuscenes)
 # the DLA-34 layer table at 544x960 (H, W, Cin, Cout, layers per frame,
 # checked against the model in the slice phase) and the offset regimes are
 # bench_dcn's, whose rows bench_dcn_phase holds against the kernel phase's
@@ -3718,6 +3729,196 @@ def coco_phase() -> dict:
     return launched
 
 
+SYNTH_DIR = BUILD_DIR.parent / "synth"
+SYNTH_MOT_FRAMES = 12          # the val half, which the test line reads: 6
+SYNTH_MOT_SIZE = (1080, 1920)
+SYNTH_PER_FRAME = {"dcn_sample": 11, "dcn_sample_onehot": 5}   # bf16 hybrid
+# what the generators write from their seeds at these sizes (numpy's
+# RandomState draws the same on every machine), and what the port's
+# converters make of it
+SYNTH_COUNTS = {"mot": {"jpg": 12, "gt_rows": 60, "val_half_images": 6,
+                        "val_half_annotations": 30},
+                "kitti": {"png": 20, "label_rows": 34, "annotations": 34},
+                "nuscenes": {"jpg": 8, "tables": 10, "images": 8,
+                             "annotations": 16}}
+
+
+def jpeg_encoder() -> str:
+    """The encoder ``image_io.imwrite_jpeg`` takes on this machine."""
+    for module in ("cv2", "PIL"):
+        try:
+            lib = __import__(module)
+        except ImportError:
+            continue
+        return f"{module} {lib.__version__}"
+    return "none (imwrite_jpeg raises EncoderMissing)"
+
+
+@contextlib.contextmanager
+def read_stamps():
+    """While open: the ``perf_counter`` time at which each frame read of
+    ``deft_tpu_torch.test`` begins (so the gaps are the loop's ms per
+    frame, the read included)."""
+    stamps = []
+    read = port_test.FrameReader.read
+
+    def stamped(self, info):
+        stamps.append(time.perf_counter())
+        return read(self, info)
+
+    port_test.FrameReader.read = stamped
+    try:
+        yield stamps
+    finally:
+        port_test.FrameReader.read = read
+
+
+def synth_phase(weights: Path) -> dict:
+    """Slice 16's path: the port's own no-dataset start.  Under
+    ``build/synth/``, in process:
+
+    * ``make_synthetic_mot.main`` (one ``--natural`` sequence of
+      ``SYNTH_MOT_FRAMES`` 1080x1920 JPEG frames, MOT17's real layout
+      ``train/SYN-01/img1/%06d.jpg`` + ``gt/gt.txt``), the port's
+      ``convert_mot_to_coco.main``, then the MOT recipe's test line at
+      bf16 through ``deft_tpu_torch.test`` on ``17halfval`` (the 6 JPEG
+      frames of the val half, read by ``image_io.imread``) with the cli
+      phase's MOT weights, their heatmap head raised on the first val
+      frame (``raise_heatmap``): 11 T1 and 5 T4 launches per frame (the
+      bf16 hybrid), results and MOT scores (``check_cli_outputs``), run
+      twice (the first run and a repeat, each timed frame by frame:
+      late in the whole script the first ran ten times slower than in a
+      process of its own);
+    * ``make_synthetic_kitti.main --rich`` (20 384x1280 PNG frames) and
+      ``make_synthetic_nuscenes.main`` (4 samples x 2 cameras of 900x1600
+      JPEG) through the port's ``convert_kittitrack_to_coco`` and
+      ``convert_nuscenes``: host only, they reach no kernel.
+
+    Asserts the files and annotations each writes (``SYNTH_COUNTS``) and
+    decodes one frame of each.  Reports which encoder wrote the JPEGs,
+    the seconds of each tool, and per run of the line its ms per frame,
+    the gaps between frame reads, its JPEG read ms per frame, the live
+    threads and the objects the garbage collector tracks.  Returns the
+    test line's launches, both runs."""
+    import shutil
+
+    shutil.rmtree(SYNTH_DIR, ignore_errors=True)
+    data_dir = SYNTH_DIR / "data"
+    mot = data_dir / "mot17"
+    seconds = {}
+
+    def tool(name, main, argv):
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            main([str(a) for a in argv])
+        seconds[name] = time.perf_counter() - t
+
+    h, w = SYNTH_MOT_SIZE
+    tool("make_synthetic_mot", make_synthetic_mot.main,
+         ["--out", mot, "--seqs", 1, "--frames", SYNTH_MOT_FRAMES,
+          "--size", f"{w}x{h}", "--natural"])
+    tool("convert_mot_to_coco", convert_mot_to_coco.main,
+         ["--data_dir", mot])
+    seq = mot / "train" / "SYN-01"
+    jpgs = sorted((seq / "img1").iterdir())
+    val = json.loads((mot / "annotations" / "val_half.json").read_text())
+    counts = {"mot": {
+        "jpg": sum(p.read_bytes()[:3] == b"\xff\xd8\xff" for p in jpgs
+                   if p.suffix == ".jpg"),
+        "gt_rows": len((seq / "gt" / "gt.txt").read_text().splitlines()),
+        "val_half_images": len(val["images"]),
+        "val_half_annotations": len(val["annotations"])}}
+    t = time.perf_counter()
+    frame = imread(str(jpgs[0]))
+    read_ms = (time.perf_counter() - t) * 1e3
+    if frame is None or frame.shape != (h, w, 3) or frame.dtype != np.uint8:
+        raise AssertionError(f"synth: {jpgs[0].name} read as "
+                             f"{None if frame is None else frame.shape}")
+
+    # the cli phase's weights raise the heatmap on its own frames, and on
+    # the generator's desaturated ones no peak reaches the line's
+    # threshold: the head is raised again on the first val frame, as the
+    # coco phase raises its model_last (trunk and DCNv2 layers unchanged)
+    argv = recipe_test_argv(
+        "mot", data_dir=data_dir, exp_dir=SYNTH_DIR / "exp", gpus=0,
+        save_results=True, load_model=SYNTH_DIR / "model.pth",
+        compute_dtype="bfloat16")
+    det = Detector(parse_config(argv)[0].replace(
+        compute_dtype="float32", load_model=str(weights)))
+    raise_heatmap(det.model, det.pre_process(imread(
+        str(mot / "train" / val["images"][0]["file_name"])))[0])
+    torch.save({"epoch": 0, "state_dict": {
+        k: v.cpu() for k, v in det.model.state_dict().items()}},
+        SYNTH_DIR / "model.pth")
+    del det
+    runs, launched = [], Counter()
+    for run in ("first", "repeat"):
+        with read_stamps() as stamps:
+            metrics, stats, count, seen, peak, _ = cli_run(argv)
+        n = stats["frames"]
+        want = {(k, "bfloat16"): v * n for k, v in SYNTH_PER_FRAME.items()}
+        want_count = dict.fromkeys(KERNELS, 0)
+        want_count.update({k: v for (k, _), v in want.items()})
+        if (n != SYNTH_COUNTS["mot"]["val_half_images"]
+                or count != want_count or seen != want):
+            raise AssertionError(f"synth mot {run}: {n} frames, launches "
+                                 f"{count} on x {seen}, expected {want}")
+        launched.update(count)
+        runs.append({
+            "run": run, "launches": count,
+            "items": check_cli_outputs("mot", argv, metrics, mot),
+            "ms_per_frame": stats["seconds"] * 1e3 / n,
+            "read_gaps_ms": list(np.diff(stamps) * 1e3),
+            "read_ms_per_frame": stats["read_seconds"] * 1e3 / n,
+            "threads": threading.active_count(),
+            "gc_objects": len(gc.get_objects()),
+            "peak_memory_bytes": peak,
+            "metrics_overall": {k: v for k, v in metrics["overall"].items()
+                                if isinstance(v, (int, float))}})
+
+    kitti = data_dir / "kitti_tracking"
+    tool("make_synthetic_kitti", make_synthetic_kitti.main,
+         ["--out", kitti, "--rich", "--frames", 20, "--seqs", 1])
+    tool("convert_kittitrack_to_coco", convert_kittitrack_to_coco.main,
+         ["--data_dir", kitti])
+    pngs = sorted((kitti / "data_tracking_image_2" / "training" / "image_02"
+                   / "0000").glob("*.png"))
+    kitti_json = json.loads((kitti / "annotations" / "tracking_train.json")
+                            .read_text())
+    counts["kitti"] = {
+        "png": len(pngs),
+        "label_rows": len((kitti / "label_02" / "0000.txt").read_text()
+                          .splitlines()),
+        "annotations": len(kitti_json["annotations"])}
+    kitti_frame = imread(str(pngs[0]))
+
+    nuscenes = data_dir / "nuscenes"
+    tool("make_synthetic_nuscenes", make_synthetic_nuscenes.main,
+         ["--out", nuscenes, "--samples", 4, "--width", 1600, "--height",
+          900])
+    tool("convert_nuscenes", convert_nuscenes.main, ["--data_root", nuscenes])
+    version = nuscenes / "v1.0-trainval"
+    nus_json = json.loads((nuscenes / "annotations" / "all.json").read_text())
+    counts["nuscenes"] = {
+        "jpg": len(list((version / "samples").rglob("*.jpg"))),
+        "tables": len(list(version.glob("*.json"))),
+        "images": len(nus_json["images"]),
+        "annotations": len(nus_json["annotations"])}
+    nus_frame = imread(str(version / nus_json["images"][0]["file_name"]))
+    if (counts != SYNTH_COUNTS or kitti_frame is None
+            or kitti_frame.shape != (384, 1280, 3) or nus_frame is None
+            or nus_frame.shape != (900, 1600, 3)):
+        raise AssertionError(
+            f"synth: counts {counts} (expected {SYNTH_COUNTS}), KITTI frame "
+            f"{None if kitti_frame is None else kitti_frame.shape}, nuScenes "
+            f"frame {None if nus_frame is None else nus_frame.shape}")
+    emit({"phase": "synth", "argv": argv, "encoder": jpeg_encoder(),
+          "frames": n, "frame_size": [h, w], "runs": runs,
+          "first_read_ms": read_ms, "tool_seconds": seconds,
+          "counts": counts})
+    return dict(launched)
+
+
 def bench_dcn_phase(rows) -> dict:
     """``python -m deft_tpu_torch.tools.bench_dcn --iters 20 --regimes
     trained --radius 4`` in process (its rows printed), then its T1 and T2
@@ -3755,7 +3956,7 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                  public_launches, cli_launches, train_launches,
                  recipe_launches, geometry_rows, ddp_launches,
                  archs_launches, bench_launches, visual_launches,
-                 coco_launches):
+                 coco_launches, synth_launches):
     """Per kernel: per-frame sums over the 16 layers of a 544x960 MOT frame
     (float32 x), the worst error of any case, and the launches of the paths
     that run it (the kernel phase's for ``dcn_fused``, which no path
@@ -3788,7 +3989,8 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
     bf16) and the coco phase those of its train line (T4, T5) and test
     lines (T1, T4); T1, T4 and T5 their sums over the layers of a 512x512
     COCO frame (``coco_512_per_frame``; T1 on a bf16 x over the bf16
-    hybrid's 11 layers)."""
+    hybrid's 11 layers).  The synth phase adds the launches of the MOT test
+    line on the generator's JPEG frames (T1 and T4, bf16)."""
     cli_hybrid = Counter()
     for (_, impl), count in cli_launches.items():
         if impl == "hybrid":
@@ -4026,6 +4228,16 @@ def kernels_line(rows, kernel_launches, slice_launches, runner_launches,
                               "and the coco phase (COCO and custom "
                               "datasets)")
             entry.setdefault("launches_by_path", {}).update(slice15_paths)
+        if synth_launches[name]:
+            entry["launches"] += synth_launches[name]
+            entry["path"] += ("; the synth phase (deft_tpu_torch.tools."
+                              "make_synthetic_mot's JPEG frames through the "
+                              "mot test line)")
+            entry.setdefault("launches_by_path", {})[
+                f"deft_tpu_torch.test, mot test line on make_synthetic_mot "
+                f"--natural JPEG frames, bfloat16, "
+                f"{SYNTH_COUNTS['mot']['val_half_images']} frames, twice"] = (
+                    synth_launches[name])
         coco = [r for r in mine if r["model"] == "coco"]
         if coco:
             entry["coco_512_per_frame"] = {
@@ -4119,6 +4331,8 @@ def main() -> int:
     lap("visual")
     coco_launches = coco_phase()
     lap("coco")
+    synth_launches = synth_phase(CLI_DIR / "weights" / "mot" / "model.pth")
+    lap("synth")
     bench_dcn_phase(rows)
     lap("bench_dcn")
     emit({"phase": "seconds", **seconds})
@@ -4130,7 +4344,7 @@ def main() -> int:
                       kitti_runner_launches, public_launches, cli_launches,
                       train_launches, recipe_launches, geometry_rows,
                       ddp_launches, archs_launches, bench_launches,
-                      visual_launches, coco_launches))
+                      visual_launches, coco_launches, synth_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

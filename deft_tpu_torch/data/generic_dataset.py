@@ -15,9 +15,10 @@ centres [max_object, 2] in [-1, 1].
 
 Every random draw is the JAX class's, on the same generators in the same
 order (``np.random``, ``random`` and ``self._data_rng``), so one seed gives
-one sample in both packages.  Two things differ, because the machine with
-the card has neither cv2 nor PIL: frames are read with
-``data/image_io.imread``, and the warp is ``ops/warp.py::
+one sample in both packages.  Two things differ, because the port needs no
+cv2 (the machine with the card has had it, but nothing may rely on it):
+frames are read with ``data/image_io.imread`` (cv2 where it imports, else
+PIL, else the standard library), and the warp is ``ops/warp.py::
 warp_affine_uint8``, numpy in cv2's arithmetic (within one uint8 step of
 ``cv2.warpAffine``, any rotation).
 """

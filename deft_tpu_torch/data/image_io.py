@@ -17,7 +17,15 @@ Any other file (JPEG among them) raises ``DecoderMissing``, naming the
 decoder it needs: a machine with neither cv2 nor PIL reads only these.
 ``imwrite_png(path, image)`` writes a uint8 BGR or gray array as a PNG
 (filter None on every row, zlib level 1), so datasets can be laid out where cv2 is
-absent.  cv2 and PIL are imported only inside the calls.
+absent.
+
+``imwrite_jpeg(path, image)`` writes a uint8 BGR array as a JPEG, where the
+JAX repo's generators call ``cv2.imwrite(path, img)`` with a ``.jpg`` name:
+through cv2 with its defaults (quality 95, 4:2:0) where it imports, else
+through PIL at quality 95 (whose subsampling at that quality is 4:2:0
+too; in this module's tests the two routes write the same bytes).  With
+neither it raises ``EncoderMissing`` and writes nothing: PNG bytes never go
+under a ``.jpg`` name.  cv2 and PIL are imported only inside the calls.
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}         # colour type -> samples per pixel
 
 class DecoderMissing(RuntimeError):
     """The file needs a decoder this machine does not have."""
+
+
+class EncoderMissing(RuntimeError):
+    """Writing the file needs an encoder this machine does not have."""
 
 
 def imread(path: str) -> Optional[np.ndarray]:
@@ -185,6 +197,31 @@ def imwrite_png(path: str, image: np.ndarray) -> None:
                                            colour, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
         f.write(chunk(b"IEND", b""))
+
+
+def imwrite_jpeg(path: str, image: np.ndarray) -> None:
+    """Write a uint8 BGR ``[H, W, 3]`` array as a JPEG, as ``cv2.imwrite``
+    does with its defaults (module docstring); ``EncoderMissing`` where
+    neither cv2 nor PIL imports."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"imwrite_jpeg takes uint8 [H, W, 3] BGR, got "
+                         f"{image.dtype} {image.shape}")
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        if not cv2.imwrite(str(path), image):
+            raise OSError(f"{path}: cv2.imwrite wrote nothing")
+        return
+    try:
+        from PIL import Image
+    except ImportError:
+        raise EncoderMissing(f"{path}: a JPEG needs cv2 or PIL to encode, "
+                             "and neither imports") from None
+    Image.fromarray(np.ascontiguousarray(image[..., ::-1])).save(
+        str(path), "JPEG", quality=95)
 
 
 # ---- PGM / PPM ---------------------------------------------------------------

@@ -24,6 +24,13 @@ detector.py:191-194``): half-pixel centres, edge pixels repeated, and
 cv2's fixed-point arithmetic for uint8 (11-bit weights, the horizontal
 blend kept as int32, the vertical one as its vectorized loop does it).  It
 agrees with cv2 (5.0) within one uint8 step.
+
+``resize_cubic`` is ``cv2.resize(img, (w, h), interpolation=INTER_CUBIC)``
+of a float32 image, which the JAX repo's MOT generator runs for its
+``--natural`` background (``tools/make_synthetic_mot.py:26``): separable,
+Keys' kernel at a = -0.75 (cv2's coefficient), half-pixel centres, edge
+pixels repeated, the sums in float64 and the result cast to float32.  It
+agrees with cv2 (5.0) within 1e-6 (``tests/test_torch_port_synthetic.py``).
 """
 
 from __future__ import annotations
@@ -108,6 +115,36 @@ def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     top = ((rows[y0] >> 4) * b0[:, None, None]) >> 16
     bottom = ((rows[y1] >> 4) * b1[:, None, None]) >> 16
     out = np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
+    return out if img.ndim == 3 else out[..., 0]
+
+
+def _cubic_taps(src_n: int, dst_n: int, a: float = -0.75):
+    """INTER_CUBIC's taps along one axis: [dst_n, 4] source indices (edges
+    repeated) and their float64 weights."""
+    f = (np.arange(dst_n, dtype=np.float64) + 0.5) * (src_n / dst_n) - 0.5
+    first = np.floor(f)
+    t = f - first
+    w = np.empty((dst_n, 4))
+    w[:, 0] = ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a
+    w[:, 1] = ((a + 2) * t - (a + 3)) * t * t + 1
+    w[:, 2] = ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1
+    w[:, 3] = 1 - w[:, 0] - w[:, 1] - w[:, 2]
+    idx = np.clip(first.astype(np.int64)[:, None] + np.arange(-1, 3), 0,
+                  src_n - 1)
+    return idx, w
+
+
+def resize_cubic(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_CUBIC)``
+    of a float32 [H, W(, C)] image (module docstring) -> float32
+    [out_h, out_w(, C)]."""
+    h, w = img.shape[:2]
+    src = (img if img.ndim == 3 else img[..., None]).astype(np.float64)
+    xi, xw = _cubic_taps(w, out_w)
+    yi, yw = _cubic_taps(h, out_h)
+    rows = sum(src[:, xi[:, k]] * xw[None, :, k, None] for k in range(4))
+    out = sum(rows[yi[:, k]] * yw[:, k, None, None] for k in range(4))
+    out = out.astype(np.float32)
     return out if img.ndim == 3 else out[..., 0]
 
 

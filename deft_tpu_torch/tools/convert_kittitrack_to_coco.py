@@ -153,10 +153,10 @@ def convert(data_dir: str, which: str):
             print(f"tracking_{part}: {len(sub['images'])} images")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--data_dir", default="data/kitti_tracking")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     convert(args.data_dir, "train")
     test_dir = os.path.join(args.data_dir, "data_tracking_image_2", "testing")
     if os.path.isdir(test_dir):

@@ -232,14 +232,14 @@ def convert(data_root, version, out_name, scene_filter=None):
           f"{len(ret['annotations'])} annotations")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--data_root", default="data/nuscenes")
     ap.add_argument("--version", default="v1.0-trainval")
     ap.add_argument("--train_scenes", default="",
                     help="file with one scene name per line (official split)")
     ap.add_argument("--val_scenes", default="")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     def load_list(path):
         if not path:

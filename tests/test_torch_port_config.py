@@ -50,9 +50,13 @@ def test_import_leaves_jax_out():
         "deft_tpu_torch.ops.cuda_dcn, deft_tpu_torch.train.run, "
         "deft_tpu_torch.train.trainer, deft_tpu_torch.train.losses, "
         "deft_tpu_torch.train.checkpoint, deft_tpu_torch.data.loader, "
-        "deft_tpu_torch.data.generic_dataset, deft_tpu_torch.ops.gaussian\n"
+        "deft_tpu_torch.data.generic_dataset, deft_tpu_torch.ops.gaussian, "
+        "deft_tpu_torch.tools.make_synthetic_mot, "
+        "deft_tpu_torch.tools.make_synthetic_kitti, "
+        "deft_tpu_torch.tools.make_synthetic_nuscenes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'deft_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'deft_tpu', 'tools', 'train', 'test', "
+        "'bench', 'train_prediction') or m.startswith('make_synthetic_'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -64,7 +68,34 @@ def test_import_leaves_jax_out():
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|jaxlib|flax)\b|from\s+(jax|jaxlib|flax)\b"
-    r"|import\s+deft_tpu(\.|\s|$)|from\s+deft_tpu(\.|\s))", re.M)
+    r"|import\s+deft_tpu(\.|\s|$)|from\s+deft_tpu(\.|\s)"
+    # the JAX repo's root modules, and its generators imported bare
+    r"|(import|from)\s+(tools|train|test|bench|train_prediction"
+    r"|make_synthetic_\w+)(\.|\s|$))", re.M)
+
+
+@pytest.mark.parametrize("line, refused", [
+    ("import jax.numpy as jnp", True),
+    ("from flax import linen", True),
+    ("import deft_tpu", True),
+    ("from deft_tpu.ops import iou", True),
+    ("from tools import make_synthetic_mot", True),
+    ("import tools.make_synthetic_kitti", True),
+    ("    from train import main", True),
+    ("import test", True),
+    ("from bench import run", True),
+    ("from train_prediction import main", True),
+    ("from make_synthetic_nuscenes import generate", True),
+    ("import make_synthetic_mot", True),
+    ("from deft_tpu_torch import test as port_test", False),
+    ("from deft_tpu_torch.tools import make_synthetic_mot", False),
+    ("from deft_tpu_torch.train import run", False),
+    ("import deft_tpu_torch.bench", False),
+    ("from testing_helpers import x", False),
+    ("from recipe_lines import RECIPES", False),
+])
+def test_forbidden_imports_pattern(line, refused):
+    assert (_FORBIDDEN.search(line + "\n") is not None) == refused
 
 
 def test_sources_import_no_jax():
