@@ -105,7 +105,8 @@ max_object=100, 50-slot rings) with seeded random weights:
   tracks against a host-warp run's, bit for bit; then the tools:
   ``bench_loader`` (batch 4, in-process and 4 workers, on the cli phase's
   MOT layout), ``measure_dcn_offsets`` on the checkpoint below, and
-  ``trace_device_ms`` on the profiled run;
+  ``trace_device_ms`` on the profiled run, whose ``spans.jsonl`` holds
+  its spans;
 * slice 15, the visualizer and the COCO-format datasets (after the bench
   phase): the MOT recipe's test line with ``--debug 2 --save_video``
   (``visual_phase``: 4 1080x1920 PNG frames at float32 and bf16, frame by
@@ -3269,10 +3270,12 @@ def bench_run(name: str, args) -> dict:
                              f"{want} ({dispatched} dispatched frames)")
     if lapjv <= 0:
         raise AssertionError(f"bench {name}: no C++ lapjv call")
-    missing = {"device_ms", "wire_rtt_ms", "wire_frame_up_ms",
-               "wire_chunk_up_ms", "e2e_ms_per_frame"} - set(line)
-    if torch.cuda.get_device_name(0) in bench.PEAKS:
-        missing |= {"mfu"} - set(line)
+    missing = {"wire_rtt_ms", "wire_frame_up_ms", "wire_chunk_up_ms",
+               "e2e_ms_per_frame", "t_dispatch_wait_ms", "n_dets"} - set(line)
+    if "--profile" in args:
+        missing |= {"device_busy_ms_per_frame"} - set(line)
+        if torch.cuda.get_device_name(0) in bench.PEAKS:
+            missing |= {"mfu"} - set(line)
     if missing:
         raise AssertionError(f"bench {name}: no {sorted(missing)} in {line}")
     print(json.dumps(line), flush=True)
@@ -3368,6 +3371,10 @@ def bench_tools(data: Path, checkpoint: Path, profiled_frames: int) -> dict:
     trace = json.loads(out.strip().splitlines()[-1])
     if not trace["device_busy_ms_total"] > 0:
         raise AssertionError(f"trace_device_ms: {trace}")
+    with open(BENCH_DIR / "profile" / "spans.jsonl") as f:
+        trace["kept_spans"] = sum(1 for _ in f)
+    if not trace["kept_spans"]:
+        raise AssertionError("the profiled bench run kept no spans")
     emit({"phase": "trace_device_ms", "seconds": secs, **trace})
     return {"loader": loader, "trace": trace}
 

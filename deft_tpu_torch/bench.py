@@ -12,36 +12,39 @@ weights, all K=100 candidates flow through the cascade: a max-load number
 
 Phases, as in ``bench.py``: a warm-up sequence, ``auto_tune`` of the
 staging modes at chunk > 1, three timed passes (their median is the
-number), the wire probe, the differential device time and the FLOPs of one
-frame program.  ONE JSON line goes to stdout, ``#`` lines to stderr:
+number), the wire probe and the FLOPs of one frame program.  ONE JSON line
+goes to stdout, ``#`` lines to stderr:
 
 * ``value``: frames per second of the median pass; ``e2e_ms_per_frame``,
   and ``t_<bucket>_ms`` per frame from ``runner.timings()``, the
   main-thread buckets of ``runner.main_keys()`` first;
   ``unattributed_ms_per_frame`` is what they leave of the wall time;
+  ``t_dispatch_wait_ms``, the part of ``dispatch`` its thread spent off the
+  CPU (the interpreter lock, the host's scheduler), and ``n_<counter>``,
+  the cascade's load per frame (``n_dets``, ``n_matched``, ``n_births``,
+  ``n_tracks_held``, ``n_tracks_removed``; ``n_slab_waits``, uploads
+  waited for);
 * ``wire_rtt_ms``: a tiny host-to-device copy, an add and the copy back;
   ``wire_frame_up_ms`` / ``_mbps`` and ``wire_chunk_up_*``: one copy from
   pinned memory, timed by CUDA events, of what the runner uploads per frame
   and per chunk in its mode (the raw frame under the device warp, the
   packed or delta warped frame under ``--yuv`` or ``--delta``);
-* ``device_ms``: ``(t_chunk - t_single) / (chunk - 1)`` of the frame
-  programs (``runner.run_program``) timed by CUDA events around them, as
-  the root bench times them by the wall clock.  A frame program queues
-  more launches than the card's launch queue holds, so where the host
-  queues slower than the card computes this is the host's time; the
-  card's own busy time per frame comes from ``--profile`` and
-  ``tools/trace_device_ms.py``, as the JAX tools reconcile it;
-* ``mfu``: the FLOPs of one frame program (``FlopCounterMode``, each DCN
+* with ``--profile DIR`` only: ``device_busy_ms_per_frame``, the union of
+  the card's kernel, copy and memset intervals in the trace of the timed
+  passes (``tools/trace_device_ms.device_busy``) over their frames, and
+  ``mfu``: the FLOPs of one frame program (``FlopCounterMode``, each DCN
   layer's product counted as 2*H*W*9*Cin*Cout whatever computes it) over
-  ``device_ms`` and the card's dense peak for the compute dtype
-  (``PEAKS``); a card not in the table gets no ``mfu``.  The FLOPs are
-  also on a ``#`` line, for the busy time's share.
+  that busy time and the card's dense peak for the compute dtype
+  (``PEAKS``); a card not in the table, or a trace with no device time,
+  gets no ``mfu``.  The FLOPs are also on a ``#`` line.
 
 There is no ``vs_baseline``: the root bench's 60 fps target was set for a
 TPU.  ``--smoke`` runs on the CPU at 128x160 with ``dla_node="conv"`` and 12
 frames; otherwise the card is used and its absence raises.  ``--profile
 DIR`` writes a ``torch.profiler`` chrome trace of the timed passes to
-``DIR/trace.json`` (``tools/trace_device_ms.py`` reads it).
+``DIR/trace.json`` (``tools/trace_device_ms.py`` reads it) and the runner's
+spans of those passes, with their chunk and frame ids on the trace's clock,
+to ``DIR/spans.jsonl`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -144,9 +147,7 @@ def _sync(device):
 
 def timed_ms(fn, device) -> float:
     """ms of ``fn()`` between two CUDA events recorded around it (on the
-    CPU the wall time).  A frame program queues about a thousand launches,
-    more than the card's launch queue holds, so the events time the host's
-    queueing where it is slower than the card."""
+    CPU the wall time): the wire probe's copies."""
     if device.type != "cuda":
         t0 = time.perf_counter()
         fn()
@@ -322,6 +323,7 @@ def main(argv=None) -> dict:
     n_tracks = 0.0
     from deft_tpu_torch import native
 
+    runner.spans.keep = bool(args.profile)
     launches0, lapjv0 = launch_counts(), native.LAPJV_CALLS
     with prof:
         for _ in range(n_rep):
@@ -336,9 +338,19 @@ def main(argv=None) -> dict:
     launches = {k: v - launches0[k] for k, v in launch_counts().items()}
     lapjv_calls = native.LAPJV_CALLS - lapjv0
     lap("timed")
+    busy = None
     if args.profile:
+        from deft_tpu_torch.tools.trace_device_ms import (device_busy,
+                                                          load_trace)
+
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        trace = load_trace(args.profile)
+        busy = device_busy(trace, n_rep * frames)
+        kept = runner.spans.export(args.profile, trace)
+        runner.spans.keep = False
+        _log(f"# spans.jsonl: {kept['spans']} spans, trace clock offset "
+             f"{kept['offset_us']} us; device busy: {json.dumps(busy)}")
         lap("trace_export")
     med = sorted(range(n_rep), key=lambda i: fps_runs[i])[n_rep // 2]
     fps = fps_runs[med]
@@ -356,28 +368,7 @@ def main(argv=None) -> dict:
         chunk_ms, chunk_mbps = probe_upload(np.stack(warps), device, 3)
     lap("wire_probe")
 
-    # ---- the differential device time of the frame programs ----
-    chunk_images = torch.from_numpy(np.stack(warps)).to(device)
-    single = chunk_images[:1]
-    runner.run_program(single, meta)
-    device_ms = None
-    if runner.chunk > 1:
-        runner.run_program(chunk_images, meta)
-
-        def one():
-            runner.run_program(single, meta)
-
-        def chunk():
-            runner.run_program(chunk_images, meta)
-
-        t1s, tcs = [], []
-        for _ in range(n_dev):
-            t1s.append(timed_ms(one, device))
-            tcs.append(timed_ms(chunk, device))
-        device_ms = max((_median(tcs) - _median(t1s)) / (runner.chunk - 1),
-                        0.01)
-    lap("device_time")
-
+    single = torch.from_numpy(warps[0][None]).to(device)
     flops = count_flops(runner, single, meta)
     lap("flops")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else ""
@@ -404,16 +395,23 @@ def main(argv=None) -> dict:
     if chunk_mbps is not None:
         out["wire_chunk_up_ms"] = round(chunk_ms, 3)
         out["wire_chunk_up_mbps"] = round(chunk_mbps, 1)
-    if device_ms is not None:
-        out["device_ms"] = round(device_ms, 3)
-        if peak is not None:
-            out["mfu"] = round(flops / (device_ms / 1000.0) / peak, 4)
+    if busy is not None:
+        busy_ms = busy["device_busy_ms_total"] / (n_rep * frames)
+        out["device_busy_ms_per_frame"] = round(busy_ms, 3)
+        if peak is not None and busy_ms > 0:
+            out["mfu"] = round(flops / (busy_ms / 1000.0) / peak, 4)
     for k in main_keys:
         if buckets.get(k):
             out[f"t_{k}_ms"] = round(buckets[k], 2)
     for k in WORKER_KEYS:
         if k not in main_keys and buckets.get(k):
             out[f"t_{k}_ms"] = round(buckets[k], 2)
+    if "dispatch" in buckets:
+        out["t_dispatch_wait_ms"] = round(
+            buckets["dispatch"] - buckets["dispatch.cpu"], 2)
+    for k, v in buckets.items():
+        if k.startswith("n."):
+            out[f"n_{k[2:]}"] = round(v, 2)
     print(json.dumps(out), flush=True)
 
     _log(f"# frames={frames} elapsed={elapsed:.2f}s "

@@ -47,15 +47,16 @@ device, through the same DCN route as ``detect``) over the warped input.
 The boards are drawn in numpy (``utils/visualize.py``).  The public branch
 and ``run_multi`` save none, as in the JAX package.
 
-``timers`` keeps the JAX ``run``'s host stages (pre, net, post, track, tot;
-``timers.mean_ms()``).  On the card a stage ends when the host moves on:
-device work queued in one stage may be waited for in a later one.
+``timers`` (a ``utils/spans.py`` recorder) keeps the JAX ``run``'s host
+stages (pre, net, post, track, tot; ``timers.mean_ms()``, ``timers.count``),
+and under a profiler marks them in its trace.  On the card a stage ends when
+the host moves on: device work queued in one stage may be waited for in a
+later one.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -79,6 +80,7 @@ from deft_tpu_torch.ops.warp import (resize_linear, separable_inverse_tf,
 from deft_tpu_torch.tracking.basetrack import IdAllocator
 from deft_tpu_torch.tracking.motion_lstm import LSTMMotion
 from deft_tpu_torch.tracking.tracker import STrack, Tracker
+from deft_tpu_torch.utils.spans import Spans
 
 MEAN = np.array([0.40789654, 0.44719302, 0.47026115], np.float32)
 STD = np.array([0.28863828, 0.27408164, 0.27809835], np.float32)
@@ -119,26 +121,6 @@ def parity_tf(meta) -> np.ndarray:
         np.asarray([meta["width"], meta["height"]], np.float32)])
 
 
-class StageTimers:
-    """Mean host seconds per stage (``deft_tpu/utils/timer.py``)."""
-
-    def __init__(self, stages):
-        self.stages = tuple(stages)
-        self.reset()
-
-    def add(self, stage: str, dt: float):
-        self.total[stage] += dt
-        self.count[stage] += 1
-
-    def mean_ms(self) -> Dict[str, float]:
-        return {s: self.total[s] * 1e3 / max(self.count[s], 1)
-                for s in self.stages}
-
-    def reset(self):
-        self.total = dict.fromkeys(self.stages, 0.0)
-        self.count = dict.fromkeys(self.stages, 0)
-
-
 class Detector:
     """``state_dict``: the network's weights, loaded strictly (else
     ``cfg.load_model``'s file overlaid tolerantly, else seeded ones);
@@ -171,7 +153,7 @@ class Detector:
         self._mean = torch.as_tensor(MEAN, device=self.device)
         self._std = torch.as_tensor(STD, device=self.device)
         self.ids = IdAllocator()
-        self.timers = StageTimers(("pre", "net", "post", "track", "tot"))
+        self.timers = Spans(("pre", "net", "post", "track", "tot"))
         self.debugger = None
         self._debug_cnt = 0
         self._pre_image_ori = None
@@ -352,21 +334,20 @@ class Detector:
         max_object boxes, embedded at their centres, go to the tracker; a
         frame without them takes the model path.
         """
-        t0 = time.perf_counter()
-        image = image_or_frame
-        if isinstance(image_or_frame, str):
-            image = self._read(image_or_frame)
-        images, meta = self._prepare(image, meta)
-        self.timers.add("pre", time.perf_counter() - t0)
-        if self.cfg.public_det and "cur_dets" in meta:
-            online = self._run_public(images, meta)
-        else:
-            (online,), (results,) = self._detect_and_track(
-                [{"images": images, "meta": meta}], None, [image_info])
-            if self.cfg.debug >= 1:
-                self.show_debug(None if isinstance(image, dict) else image,
-                                images, results, online)
-        self.timers.add("tot", time.perf_counter() - t0)
+        with self.timers.span("tot"):
+            with self.timers.span("pre"):
+                image = image_or_frame
+                if isinstance(image_or_frame, str):
+                    image = self._read(image_or_frame)
+                images, meta = self._prepare(image, meta)
+            if self.cfg.public_det and "cur_dets" in meta:
+                online = self._run_public(images, meta)
+            else:
+                (online,), (results,) = self._detect_and_track(
+                    [{"images": images, "meta": meta}], None, [image_info])
+                if self.cfg.debug >= 1:
+                    self.show_debug(None if isinstance(image, dict)
+                                    else image, images, results, online)
         return online
 
     @torch.no_grad()
@@ -381,13 +362,10 @@ class Detector:
         return results, emb[0][:n]
 
     def _run_public(self, images, meta) -> List[STrack]:
-        t0 = time.perf_counter()
-        results, emb = self.embed_public(images, meta)
-        t1 = time.perf_counter()
-        self.timers.add("net", t1 - t0)
-        online = self.tracker.update(results, emb)
-        self.timers.add("track", time.perf_counter() - t1)
-        return online
+        with self.timers.span("net"):
+            results, emb = self.embed_public(images, meta)
+        with self.timers.span("track"):
+            return self.tracker.update(results, emb)
 
     def run_multi(self, images_or_frames, metas=None, image_infos=None,
                   materialize=None):
@@ -413,20 +391,17 @@ class Detector:
         image_infos = image_infos or [None] * n
         batch, b_metas = zip(*[self._prepare(img, meta) for img, meta
                                in zip(images_or_frames, metas)])
-        t1 = time.perf_counter()
-        dets, emb = self.process(torch.cat(batch), b_metas[0])
-        self.timers.add("net", time.perf_counter() - t1)
+        with self.timers.span("net"):
+            dets, emb = self.process(torch.cat(batch), b_metas[0])
 
         online_per_cam, results_per_cam = [], []
         for b in range(n):
-            t0 = time.perf_counter()
-            dets_b = {k: v[b: b + 1] for k, v in dets.items()}
-            results = self.post_process(dets_b, b_metas[b])
-            t1 = time.perf_counter()
-            online = self._track(results, emb[b][: len(results)],
-                                 image_infos[b])
-            self.timers.add("post", t1 - t0)
-            self.timers.add("track", time.perf_counter() - t1)
+            with self.timers.span("post"):
+                dets_b = {k: v[b: b + 1] for k, v in dets.items()}
+                results = self.post_process(dets_b, b_metas[b])
+            with self.timers.span("track"):
+                online = self._track(results, emb[b][: len(results)],
+                                     image_infos[b])
             online_per_cam.append(materialize(online) if materialize
                                   else online)
             results_per_cam.append(results)

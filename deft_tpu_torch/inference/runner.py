@@ -50,6 +50,11 @@ The runner overlaps them:
 * A partial final chunk is padded by repeating its last frame and the pad's
   outputs are dropped (the device ring then holds pad entries: ``reset()``
   before the next sequence).
+* ``spans`` (``utils/spans.py``) times each stage of both threads, the
+  frame programs' (``program.*``) and the tracker's (``tracker.*``), and
+  counts the cascade's load; ``timings()`` reads it.  Its spans carry the
+  frame's id (submission order) or the chunk's (dispatch order), which
+  count on across resets.
 * Under ``cfg.public_det`` the chunk is 1, and a frame whose meta carries
   ``cur_dets`` runs ``frame_step_embed`` at those boxes' centres (uploaded
   from a pinned buffer) on the frame warped as the others are: no heads,
@@ -82,6 +87,7 @@ from deft_tpu_torch.models.deft import new_ring, unpack_dets
 from deft_tpu_torch.ops.affine import get_affine_transform
 from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_uint8
 from deft_tpu_torch.tracking.tracker import freshness_window
+from deft_tpu_torch.utils.spans import NO_SPANS, Spans
 
 RING_SLOTS = 50
 CASCADE_DEPTH = 1      # cascades left outstanding before the main thread waits
@@ -158,11 +164,14 @@ class TrackView:
 
 class _HostBuffers:
     """A pool of host tensors (pinned when ``pinned``).  A buffer handed
-    back with an event is handed out again only after the event passed."""
+    back with an event is handed out again only after the event passed;
+    a wait for one is the span ``runner.slab_wait`` and the counter
+    ``slab_waits`` of ``spans``."""
 
-    def __init__(self, pinned: bool, keep: int = 8):
+    def __init__(self, pinned: bool, keep: int = 8, spans=NO_SPANS):
         self.pinned = pinned
         self.keep = keep
+        self.spans = spans
         self._free: List[tuple] = []
         self._lock = threading.Lock()
 
@@ -176,8 +185,10 @@ class _HostBuffers:
                 buf = event = None
         if buf is None:
             return torch.empty(shape, dtype=dtype, pin_memory=self.pinned)
-        if event is not None:
-            event.synchronize()
+        if event is not None and not event.query():
+            with self.spans.span("runner.slab_wait"):
+                event.synchronize()
+            self.spans.add("slab_waits")
         return buf
 
     def give(self, buf: torch.Tensor, event=None):
@@ -245,13 +256,16 @@ class PipelinedRunner:
         # main thread's uploads and dispatches of later frames
         self.cascade_async = True
         self._casc_pool = ThreadPoolExecutor(max_workers=1)
+        # the spans and counters of the loop (timings()), shared with the
+        # frame programs and the tracker; frame and chunk ids count on
+        # across resets
+        self.spans = Spans()
+        detector.model.spans = self.spans
+        self._n_frames = self._n_chunks = 0
         on_card = self.device.type == "cuda"
-        self._slabs = _HostBuffers(pinned=on_card)
+        self._slabs = _HostBuffers(pinned=on_card, spans=self.spans)
         self._fetch_bufs = _HostBuffers(pinned=on_card)
         self._center_bufs = _HostBuffers(pinned=on_card)
-        self._t_lock = threading.Lock()
-        self.buckets: Dict[str, float] = {}
-        self._frames_done = 0
 
         present = {"scores", "clses", "cts"}
         if {"wh", "ltrb", "ltrb_amodal"} & set(cfg.heads):
@@ -288,18 +302,16 @@ class PipelinedRunner:
 
     # ---- bookkeeping ---------------------------------------------------------
 
-    def _acc(self, key: str, dt_s: float):
-        with self._t_lock:
-            self.buckets[key] = self.buckets.get(key, 0.0) + dt_s * 1000.0
-
     def timings(self) -> Dict[str, float]:
-        """ms/frame per bucket since the last reset.  ``main_keys()`` are
-        charged to the main thread (their sum approximates the wall time per
-        frame); fetch_wait and cascade (split into casc_post, casc_desims,
-        casc_track) run on the cascade worker and overlap it."""
-        n = max(self._frames_done, 1)
-        with self._t_lock:
-            return {k: v / n for k, v in sorted(self.buckets.items())}
+        """Per tracked frame since the last reset: the wall ms of each span
+        (``<span>``), its thread's CPU ms (``<span>.cpu``) and each counter
+        (``n.<counter>``).  ``main_keys()`` are charged to the main thread
+        (their sum approximates the wall time per frame; ``program.*`` and
+        ``runner.fetch`` nest in ``dispatch``, ``runner.slab_wait`` in
+        ``warp``); fetch_wait and cascade (split into casc_post,
+        casc_desims, casc_track, which holds the ``tracker.*`` stages) run
+        on the cascade worker and overlap it."""
+        return self.spans.per_frame(self.spans.count.get("cascade", 0))
 
     def main_keys(self) -> tuple:
         base = ("warp", "host_prep", "upload", "stage_wait", "dispatch",
@@ -310,13 +322,11 @@ class PipelinedRunner:
 
     def reset(self):
         """A fresh ring and tracker for a new sequence."""
-        wait([fut for fut in getattr(self, "_casc_futs", [])])
+        wait([fut for _, fut in getattr(self, "_casc_futs", [])])
         for item in getattr(self, "_pending", []):
             if item["event"] is not None:
                 item["event"].synchronize()
-        with self._t_lock:
-            self.buckets = {}
-            self._frames_done = 0
+        self.spans.reset()
         self.state = new_ring(RING_SLOTS, self.cfg.max_object,
                               self.det.embed_dim, self.device)
         if self._delta_mode:
@@ -330,6 +340,7 @@ class PipelinedRunner:
         self._cur_stack: Optional[torch.Tensor] = None
         self._ring_dirty = False
         self.det.reset_tracking()
+        self.det.tracker.spans = self.spans
 
     # ---- the pipeline --------------------------------------------------------
 
@@ -373,26 +384,26 @@ class PipelinedRunner:
         """Feed one raw frame; returns completed frames' tracks (a list of
         per-frame lists when chunked, one frame's list otherwise) once the
         pipeline is full, else None."""
-        t0 = time.perf_counter()
-        dst = None
-        if not self.host_warp:
-            # the raw frame goes straight into a pooled slab: the chunk's
-            # under stacked staging, its own otherwise (a warped frame's
-            # size is known only after its warp: those are copied later)
-            if not self.stacked:
-                self._cur_stack = self._slabs.take(
-                    (1,) + tuple(image_bgr.shape), torch.uint8)
-            elif not self._chunk_buf:
-                self._cur_stack = self._slabs.take(
-                    (self.chunk,) + tuple(image_bgr.shape), torch.uint8)
-        # a chunk begun by submit_warped() has no slab: its frames are
-        # copied into one at dispatch (the JAX runner indexes None here,
-        # runner.py:546)
-        if self._cur_stack is not None:
-            slot = len(self._chunk_buf) if self.stacked else 0
-            dst = self._cur_stack[slot].numpy()
-        frame, frame_meta = self.warp(image_bgr, meta, dst=dst)
-        self._acc("warp", time.perf_counter() - t0)
+        with self.spans.span("warp", frame=self._n_frames):
+            dst = None
+            if not self.host_warp:
+                # the raw frame goes straight into a pooled slab: the
+                # chunk's under stacked staging, its own otherwise (a warped
+                # frame's size is known only after its warp: those are
+                # copied later)
+                if not self.stacked:
+                    self._cur_stack = self._slabs.take(
+                        (1,) + tuple(image_bgr.shape), torch.uint8)
+                elif not self._chunk_buf:
+                    self._cur_stack = self._slabs.take(
+                        (self.chunk,) + tuple(image_bgr.shape), torch.uint8)
+            # a chunk begun by submit_warped() has no slab: its frames are
+            # copied into one at dispatch (the JAX runner indexes None here,
+            # runner.py:546)
+            if self._cur_stack is not None:
+                slot = len(self._chunk_buf) if self.stacked else 0
+                dst = self._cur_stack[slot].numpy()
+            frame, frame_meta = self.warp(image_bgr, meta, dst=dst)
         return self.submit_warped(frame, frame_meta)
 
     def submit_warped(self, frame: np.ndarray, frame_meta: dict):
@@ -401,20 +412,20 @@ class PipelinedRunner:
             raise RuntimeError(
                 "a padded partial chunk was flushed (the device ring holds pad "
                 "entries); call reset() before submitting more frames")
-        t0 = time.perf_counter()
-        if self._delta_mode:
-            payload = frame - self._prev_warped         # uint8 wraps mod 256
-            self._prev_warped = frame
-            frame = payload
-        if self._yuv_mode:
-            frame = pack_yuv420(frame)
-        self._acc("host_prep", time.perf_counter() - t0)
+        fid = self._n_frames
+        self._n_frames += 1
+        with self.spans.span("host_prep", frame=fid):
+            if self._delta_mode:
+                payload = frame - self._prev_warped     # uint8 wraps mod 256
+                self._prev_warped = frame
+                frame = payload
+            if self._yuv_mode:
+                frame = pack_yuv420(frame)
         if not self.stacked:
             # per-frame staging: this frame's copy starts now
-            t0 = time.perf_counter()
-            frame = self._upload(self._fill_slab([frame], 1))
-            self._acc("upload", time.perf_counter() - t0)
-        self._chunk_buf.append((frame, frame_meta))
+            with self.spans.span("upload", frame=fid):
+                frame = self._upload(self._fill_slab([frame], 1))
+        self._chunk_buf.append((frame, frame_meta, fid))
         if len(self._chunk_buf) >= self.chunk:
             self._dispatch_chunk()
         while len(self._pending) > self.depth:
@@ -465,9 +476,8 @@ class PipelinedRunner:
         for i in range(n):
             if i + lookahead < n:
                 futs.append(warp_ahead(i + lookahead))
-            t0 = time.perf_counter()
-            frame, frame_meta = futs[i].result()
-            self._acc("warp", time.perf_counter() - t0)
+            with self.spans.span("warp", frame=self._n_frames):
+                frame, frame_meta = futs[i].result()
             collect(self.submit_warped(frame, frame_meta))
         results.extend(self.flush())
         return results
@@ -527,41 +537,41 @@ class PipelinedRunner:
             images, event = self._copy(slab)
         self._slabs.give(slab, event)
         if self.force_resident and event is not None:
-            t0 = time.perf_counter()
-            event.synchronize()
-            self._acc("stage_wait", time.perf_counter() - t0)
+            with self.spans.span("stage_wait"):
+                event.synchronize()
         return images
 
     def _dispatch_chunk(self):
         if not self._chunk_buf:
             return
-        frames = [f for f, _ in self._chunk_buf]
-        metas = [m for _, m in self._chunk_buf]
+        frames = [f for f, _, _ in self._chunk_buf]
+        metas = [m for _, m, _ in self._chunk_buf]
+        fids = [i for _, _, i in self._chunk_buf]
         self._chunk_buf = []
+        cid = self._n_chunks
+        self._n_chunks += 1
         n_real = len(frames)
         if n_real < self.chunk:
             # pad to the chunk length by repeating the last frame
             # (runner.py:614-622); the pad's outputs are dropped below
             self._ring_dirty = True
             frames += [frames[-1]] * (self.chunk - n_real)
-        t0 = time.perf_counter()
-        if self.stacked:
-            images = self._upload(self._fill_slab(frames, self.chunk))
-        else:
-            # per-frame staging: the frames are on the device already
-            images = frames[0] if self.chunk == 1 else torch.cat(frames)
-        self._acc("upload", time.perf_counter() - t0)
+        with self.spans.span("upload", chunk=cid):
+            if self.stacked:
+                images = self._upload(self._fill_slab(frames, self.chunk))
+            else:
+                # per-frame staging: the frames are on the device already
+                images = frames[0] if self.chunk == 1 else torch.cat(frames)
 
-        t0 = time.perf_counter()
-        if self.cfg.public_det and "cur_dets" in metas[0]:
-            self._pending.append(self._dispatch_public(images, metas[0]))
-            self._acc("dispatch", time.perf_counter() - t0)
-            return
-        packed, sims = self.run_program(images, metas[0])
-        item = self._fetch(sims[:n_real], packed[:n_real])
-        item["metas"] = metas
-        self._pending.append(item)
-        self._acc("dispatch", time.perf_counter() - t0)
+        with self.spans.span("dispatch", chunk=cid):
+            if self.cfg.public_det and "cur_dets" in metas[0]:
+                item = self._dispatch_public(images, metas[0])
+            else:
+                packed, sims = self.run_program(images, metas[0])
+                item = self._fetch(sims[:n_real], packed[:n_real])
+                item["metas"] = metas
+            item["chunk"], item["frames"] = cid, fids
+            self._pending.append(item)
 
     def run_program(self, images: torch.Tensor, frame_meta: dict):
         """Queue the frame program of one dispatch on the device: images
@@ -623,13 +633,15 @@ class PipelinedRunner:
         """One copy of a dispatch's outputs to the host: packed [T, L]
         float32 (none for a public frame) and sims [T, ...] joined as bytes
         on the device."""
-        if packed is None:
-            packed = sims.new_zeros((0,), dtype=torch.float32)
-        blob = torch.cat([packed.reshape(-1).view(torch.uint8),
-                          sims.reshape(-1).view(torch.uint8)])
-        host = self._fetch_bufs.take((blob.numel(),), torch.uint8)
-        host.copy_(blob, non_blocking=True)
-        return {"host": host, "event": self._record_event(),
+        with self.spans.span("runner.fetch"):
+            if packed is None:
+                packed = sims.new_zeros((0,), dtype=torch.float32)
+            blob = torch.cat([packed.reshape(-1).view(torch.uint8),
+                              sims.reshape(-1).view(torch.uint8)])
+            host = self._fetch_bufs.take((blob.numel(),), torch.uint8)
+            host.copy_(blob, non_blocking=True)
+            event = self._record_event()
+        return {"host": host, "event": event,
                 "packed_shape": tuple(packed.shape),
                 "sims_shape": tuple(sims.shape),
                 "sims_dtype": (np.uint8 if sims.dtype == torch.uint8
@@ -639,28 +651,28 @@ class PipelinedRunner:
 
     def _enqueue_finish(self, item: dict):
         if self.cascade_async:
-            self._casc_futs.append(self._casc_pool.submit(self._finish, item))
+            fut = self._casc_pool.submit(self._finish, item)
         else:
-            self._casc_futs.append(_Ready(self._finish(item)))
+            fut = _Ready(self._finish(item))
+        self._casc_futs.append((item["chunk"], fut))
 
     def _pop_ready(self, out: List, drain: bool = False):
         """Block on cascades beyond CASCADE_DEPTH (in steady state already
         done) and append their frames' track lists to ``out``."""
         while self._casc_futs and (drain
                                    or len(self._casc_futs) > CASCADE_DEPTH):
-            fut = self._casc_futs.pop(0)
-            t0 = time.perf_counter()
-            res = fut.result()
-            self._acc("casc_wait", time.perf_counter() - t0)
+            cid, fut = self._casc_futs.pop(0)
+            with self.spans.span("casc_wait", chunk=cid):
+                res = fut.result()
             out.extend(res)
 
     def _finish(self, item: dict) -> List[List]:
         """Wait for a dispatch's copy, then post-process and track each of
         its frames in order."""
-        t0 = time.perf_counter()
-        if item["event"] is not None:
-            item["event"].synchronize()
-        self._acc("fetch_wait", time.perf_counter() - t0)
+        cid, fids = item["chunk"], item["frames"]
+        with self.spans.span("fetch_wait", chunk=cid):
+            if item["event"] is not None:
+                item["event"].synchronize()
         raw = item["host"].numpy()
         n_packed = int(np.prod(item["packed_shape"])) * 4
         packed = raw[:n_packed].view(np.float32).reshape(item["packed_shape"])
@@ -668,40 +680,39 @@ class PipelinedRunner:
             item["sims_shape"])
         try:
             if "public" in item:
-                return [self._finish_frame(None, sims[0], None,
+                return [self._finish_frame(None, sims[0], None, cid, fids[0],
                                            item["public"])]
-            return [self._finish_frame(packed[t], sims[t], meta)
+            return [self._finish_frame(packed[t], sims[t], meta, cid,
+                                       fids[t])
                     for t, meta in enumerate(item["metas"])]
         finally:
             self._fetch_bufs.give(item["host"])
 
     def _finish_frame(self, packed: Optional[np.ndarray], sims: np.ndarray,
-                      meta: Optional[dict], public=None) -> List:
+                      meta: Optional[dict], chunk: int, frame: int,
+                      public=None) -> List:
         """Post-process one frame's packed detections, or take its public
         ones (runner.py:480-492), then run the tracker on its sims."""
-        t0 = time.perf_counter()
-        if public is not None:
-            results = public
-        else:
-            dets, n_valid = unpack_dets(packed, self._layout, self.cfg.K)
-            if self.cap:
-                n_valid = min(n_valid, self.cap)
-            results = self.det.post_process(dets, meta)
-            if self.cfg.dataset == "kitti_tracking":
-                results = [d for d in results if d["class"] == 2]
-            results = results[:n_valid]
-        t1 = time.perf_counter()
-        self._acc("casc_post", t1 - t0)
-        sims = (sims.astype(np.float32) / 255.0 if sims.dtype == np.uint8
-                else sims.astype(np.float32))
-        t2 = time.perf_counter()
-        self._acc("casc_desims", t2 - t1)
-        out = self.det.tracker.update(results, None, sims=sims)
-        if self.cascade_async:
-            out = [TrackView(t) for t in out]
-        t3 = time.perf_counter()
-        self._acc("casc_track", t3 - t2)
-        self._acc("cascade", t3 - t0)
-        with self._t_lock:
-            self._frames_done += 1
+        spans = self.spans
+        with spans.span("cascade", chunk=chunk, frame=frame):
+            with spans.span("casc_post"):
+                if public is not None:
+                    results = public
+                else:
+                    dets, n_valid = unpack_dets(packed, self._layout,
+                                                self.cfg.K)
+                    if self.cap:
+                        n_valid = min(n_valid, self.cap)
+                    results = self.det.post_process(dets, meta)
+                    if self.cfg.dataset == "kitti_tracking":
+                        results = [d for d in results if d["class"] == 2]
+                    results = results[:n_valid]
+            with spans.span("casc_desims"):
+                sims = (sims.astype(np.float32) / 255.0
+                        if sims.dtype == np.uint8
+                        else sims.astype(np.float32))
+            with spans.span("casc_track"):
+                out = self.det.tracker.update(results, None, sims=sims)
+                if self.cascade_async:
+                    out = [TrackView(t) for t in out]
         return out

@@ -44,6 +44,12 @@ The ring state ``{"embeds" [W, M, E] float32, "counts" [W] int32, "ptr" []
 int64}`` is a dict of device tensors that the frame programs update in place
 (the JAX package returns a new state and donates the old); nothing in a
 frame program waits for the device, so a caller can queue frames ahead.
+
+``spans`` (``utils/spans.py``; a ``PipelinedRunner`` sets its own) times the
+frame programs' stages as the host queues them: ``program.warp`` (the input
+path), ``program.forward``, ``program.decode`` (sigmoid, decode, centres),
+``program.embed`` (the AFE's sampling) and ``program.tail`` (per frame: the
+similarity and the ring write).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from deft_tpu_torch.models.afe import AFE
 from deft_tpu_torch.models.dla import DLASeg, NodeSpec, selector_widths
 from deft_tpu_torch.models.layers import Conv2d
 from deft_tpu_torch.ops.decode import clamped_sigmoid, generic_decode
+from deft_tpu_torch.utils.spans import NO_SPANS
 from deft_tpu_torch.ops.warp import hat_matrix, warp_affine_with
 
 MEAN = (0.40789654, 0.44719302, 0.47026115)
@@ -158,6 +165,7 @@ class DEFTNet(DLASeg):
         # device warp matrices per (transform, frame size): the frame
         # programs reuse them, so no frame builds them from host scalars
         self._hats: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.spans = NO_SPANS
 
     @property
     def embed_dim(self) -> int:
@@ -220,38 +228,45 @@ class DEFTNet(DLASeg):
         likewise with its x channels (the even ones) negated; every other
         head and the 13 feature maps come from the unflipped half.
         """
-        if flip_test:
-            outputs, feature_maps = self._flip_forward(image)
-        else:
-            outputs, feature_maps = self(image)
-        outputs["hm"] = clamped_sigmoid(outputs["hm"])
-        if "dep" in outputs:
-            # inference depth decode (deft_tpu/models/deft.py:231-235)
-            outputs["dep"] = (1.0 / (torch.sigmoid(outputs["dep"]) + 1e-6)
-                              - 1.0) * self.depth_scale
-        dets = generic_decode(outputs, k=k)
-        bboxes = dets.get("bboxes")
-        if bboxes is None:
-            cts = dets["cts"]
-        else:
-            cts = torch.stack([(bboxes[..., 0] + bboxes[..., 2]) / 2.0,
-                               (bboxes[..., 1] + bboxes[..., 3]) / 2.0], dim=-1)
-        if parity_tf is not None:
-            # float32 scalars, as the JAX program's [8] operand, that need
-            # no copy to the device
-            tf = [float(v) for v in np.asarray(parity_tf, np.float32).ravel()]
-            xi = cts[..., 0] * 4.0          # input-frame pixels
-            yi = cts[..., 1] * 4.0
-            xo = tf[0] * xi + tf[1] * yi + tf[2]
-            yo = tf[3] * xi + tf[4] * yi + tf[5]
-            centers = torch.stack([2.0 * xo / tf[6] - 1.0,
-                                   2.0 * yo / tf[7] - 1.0], dim=-1)
-        else:
-            out_h = image.shape[1] // 4
-            out_w = image.shape[2] // 4
-            centers = torch.stack([2.0 * cts[..., 0] / out_w - 1.0,
-                                   2.0 * cts[..., 1] / out_h - 1.0], dim=-1)
-        return dets, self.extract(feature_maps, centers)
+        spans = self.spans
+        with spans.span("program.forward"):
+            if flip_test:
+                outputs, feature_maps = self._flip_forward(image)
+            else:
+                outputs, feature_maps = self(image)
+        with spans.span("program.decode"):
+            outputs["hm"] = clamped_sigmoid(outputs["hm"])
+            if "dep" in outputs:
+                # inference depth decode (deft_tpu/models/deft.py:231-235)
+                outputs["dep"] = (1.0 / (torch.sigmoid(outputs["dep"]) + 1e-6)
+                                  - 1.0) * self.depth_scale
+            dets = generic_decode(outputs, k=k)
+            bboxes = dets.get("bboxes")
+            if bboxes is None:
+                cts = dets["cts"]
+            else:
+                cts = torch.stack([(bboxes[..., 0] + bboxes[..., 2]) / 2.0,
+                                   (bboxes[..., 1] + bboxes[..., 3]) / 2.0],
+                                  dim=-1)
+            if parity_tf is not None:
+                # float32 scalars, as the JAX program's [8] operand, that
+                # need no copy to the device
+                tf = [float(v)
+                      for v in np.asarray(parity_tf, np.float32).ravel()]
+                xi = cts[..., 0] * 4.0          # input-frame pixels
+                yi = cts[..., 1] * 4.0
+                xo = tf[0] * xi + tf[1] * yi + tf[2]
+                yo = tf[3] * xi + tf[4] * yi + tf[5]
+                centers = torch.stack([2.0 * xo / tf[6] - 1.0,
+                                       2.0 * yo / tf[7] - 1.0], dim=-1)
+            else:
+                out_h = image.shape[1] // 4
+                out_w = image.shape[2] // 4
+                centers = torch.stack([2.0 * cts[..., 0] / out_w - 1.0,
+                                       2.0 * cts[..., 1] / out_h - 1.0],
+                                      dim=-1)
+        with spans.span("program.embed"):
+            return dets, self.extract(feature_maps, centers)
 
     def _flip_forward(self, image: torch.Tensor):
         """``forward`` under ``flip_test`` (``detect``'s docstring)."""
@@ -274,8 +289,10 @@ class DEFTNet(DLASeg):
         the boxes come from a file and the model's heads and decode do not
         run.  image [B, H, W, 3] uint8 or normalized; centers [B, N, 2] in
         [-1, 1] -> [B, N, E]."""
-        _, feature_maps = self.trunk(self._maybe_normalize(image))
-        return self.extract(feature_maps, centers)
+        with self.spans.span("program.forward"):
+            _, feature_maps = self.trunk(self._maybe_normalize(image))
+        with self.spans.span("program.embed"):
+            return self.extract(feature_maps, centers)
 
     # ---- fused per-frame tracking programs -----------------------------------
 
@@ -387,16 +404,17 @@ class DEFTNet(DLASeg):
         Valid detections are the score-sorted prefix above ``out_thresh``,
         at most ``max_object``; with ``class_filter >= 0`` only that class,
         the embeddings stably compacted to the host's filtered order."""
-        valid = dets["scores"] >= out_thresh
-        if class_filter >= 0:
-            valid = valid & (dets["clses"].int() == class_filter)
-            order = torch.sort((~valid).int(), stable=True).indices
-            emb = emb[order]
-        n_valid = valid.sum().clamp(max=self.max_object).int()
-        sims = self._sim_and_record(emb, n_valid, state, sims_quant,
-                                    sim_window)
-        kept = {k: v[None] for k, v in dets.items() if k in KEEP_DETS}
-        return pack_dets(kept, n_valid), sims
+        with self.spans.span("program.tail"):
+            valid = dets["scores"] >= out_thresh
+            if class_filter >= 0:
+                valid = valid & (dets["clses"].int() == class_filter)
+                order = torch.sort((~valid).int(), stable=True).indices
+                emb = emb[order]
+            n_valid = valid.sum().clamp(max=self.max_object).int()
+            sims = self._sim_and_record(emb, n_valid, state, sims_quant,
+                                        sim_window)
+            kept = {k: v[None] for k, v in dets.items() if k in KEEP_DETS}
+            return pack_dets(kept, n_valid), sims
 
     @torch.no_grad()
     def frame_step(self, image: torch.Tensor, state, out_thresh: float,
@@ -412,12 +430,14 @@ class DEFTNet(DLASeg):
         is updated in place.  ``parity_tf`` and ``flip_test`` as
         ``detect``'s."""
         _check_wire(state, yuv_in, warp_tf)
-        if warp_tf is not None:
-            image = self._warp_normalize(image, warp_tf, warp_out)
-        if "prev_frame" in state:
-            image = self._rebuild_delta(image, state)
-        dets, emb = self.detect(self._decode_input(image, yuv_in), k=k,
-                                parity_tf=parity_tf, flip_test=flip_test)
+        with self.spans.span("program.warp"):
+            if warp_tf is not None:
+                image = self._warp_normalize(image, warp_tf, warp_out)
+            if "prev_frame" in state:
+                image = self._rebuild_delta(image, state)
+            image = self._decode_input(image, yuv_in)
+        dets, emb = self.detect(image, k=k, parity_tf=parity_tf,
+                                flip_test=flip_test)
         return self._frame_tail({key: v[0] for key, v in dets.items()},
                                 emb[0], state, out_thresh, class_filter,
                                 sims_quant, sim_window)
@@ -435,7 +455,8 @@ class DEFTNet(DLASeg):
         Returns (packed [T, L], sims [T, ...])."""
         _check_wire(state, yuv_in, warp_tf)
         if warp_tf is not None:
-            images = self._warp_normalize(images, warp_tf, warp_out)
+            with self.spans.span("program.warp"):
+                images = self._warp_normalize(images, warp_tf, warp_out)
         outs = [self.frame_step(images[t: t + 1], state, out_thresh, k=k,
                                 class_filter=class_filter,
                                 sims_quant=sims_quant, sim_window=sim_window,
@@ -456,12 +477,14 @@ class DEFTNet(DLASeg):
         deft.py:525-576``); delta frames are rebuilt, in order, before the
         batched forward."""
         _check_wire(state, yuv_in, warp_tf)
-        if warp_tf is not None:
-            images = self._warp_normalize(images, warp_tf, warp_out)
-        if "prev_frame" in state:
-            images = self._rebuild_delta(images, state)
-        dets, emb = self.detect(self._decode_input(images, yuv_in), k=k,
-                                parity_tf=parity_tf, flip_test=flip_test)
+        with self.spans.span("program.warp"):
+            if warp_tf is not None:
+                images = self._warp_normalize(images, warp_tf, warp_out)
+            if "prev_frame" in state:
+                images = self._rebuild_delta(images, state)
+            images = self._decode_input(images, yuv_in)
+        dets, emb = self.detect(images, k=k, parity_tf=parity_tf,
+                                flip_test=flip_test)
         outs = [self._frame_tail({key: v[t] for key, v in dets.items()},
                                  emb[t], state, out_thresh, class_filter,
                                  sims_quant, sim_window)
@@ -480,14 +503,16 @@ class DEFTNet(DLASeg):
         to max_object.  Returns the sims; the ring in ``state`` is updated
         in place (a frame of 0 detections is not written)."""
         if warp_tf is not None:
-            image = self._warp_normalize(image, warp_tf, warp_out)
+            with self.spans.span("program.warp"):
+                image = self._warp_normalize(image, warp_tf, warp_out)
         emb = self.embed_image(image, centers[None])[0]
-        if not torch.is_tensor(n_dets):
-            n_dets = torch.full((), n_dets, dtype=torch.int32,
-                                device=emb.device)
-        n_valid = n_dets.clamp(max=self.max_object).int()
-        return self._sim_and_record(emb, n_valid, state, sims_quant,
-                                    sim_window)
+        with self.spans.span("program.tail"):
+            if not torch.is_tensor(n_dets):
+                n_dets = torch.full((), n_dets, dtype=torch.int32,
+                                    device=emb.device)
+            n_valid = n_dets.clamp(max=self.max_object).int()
+            return self._sim_and_record(emb, n_valid, state, sims_quant,
+                                        sim_window)
 
 
 def _check_wire(state, yuv_in: bool, warp_tf):

@@ -34,7 +34,10 @@ Under ``--public_det --load_results <json>`` the file's detections
 results go through the dataset's ``run_eval`` (the writers of ``track.py``
 and ``tools/eval_*.py``), whose value ``main`` returns; ``--save_results``
 also writes ``save_results_<dataset>.json``, and ``--profile <dir>``
-exports a ``torch.profiler`` trace of the loop there.
+exports a ``torch.profiler`` trace of the loop there (``trace.json``) and
+the loop's spans with their chunk and frame ids on the trace's clock
+(``spans.jsonl``: the runner's, or ``Detector.run``'s stages where no
+runner runs; ``utils/spans.py``).
 
 The JAX loop reads each video's first frame to set the detector's
 ``img_height`` / ``img_width``, which nothing reads; the port's detector
@@ -131,8 +134,10 @@ def main(argv=None, stats: Optional[dict] = None):
     runner = None if nuscenes or debug else PipelinedRunner(detector)
     cls_default = 2 if cfg.dataset == "kitti_tracking" else 1
     reader = FrameReader(dataset.img_dir)
+    spans = runner.spans if runner is not None else detector.timers
 
     if cfg.profile:
+        spans.keep = True
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -179,6 +184,7 @@ def main(argv=None, stats: Optional[dict] = None):
     if cfg.profile:
         os.makedirs(cfg.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(cfg.profile, "trace.json"))
+        spans.export(cfg.profile)
     logger.write(f"tracked {reader.frames} frames at "
                  f"{reader.frames / max(seconds, 1e-6):.2f} FPS")
     if stats is not None:

@@ -18,6 +18,14 @@
 
 The tracker never touches the model: embeddings arrive pre-computed and
 similarity comes through an injected callable.
+
+``Tracker.spans`` (``utils/spans.py``; ``PipelinedRunner`` sets its own)
+times ``update``'s stages (``tracker.predict``, ``tracker.affinity``,
+``tracker.assign``, ``tracker.iou``, ``tracker.births``,
+``tracker.bookkeeping``) and counts its load per frame: ``dets``,
+``matched`` (the 0.9 appearance assignment's pairs), ``births``,
+``tracks_held`` (tracked and lost after the update) and ``tracks_removed``
+(the length of ``removed_stracks``, which grows for the whole sequence).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from deft_tpu_torch.tracking import matching
 from deft_tpu_torch.tracking.basetrack import BaseTrack, IdAllocator, TrackState
 from deft_tpu_torch.tracking.kalman import KalmanFilter
 from deft_tpu_torch.tracking.motion_lstm import LSTMMotion
+from deft_tpu_torch.utils.spans import NO_SPANS
 
 MAX_RECORD_FRAME = 50
 DECAY = 1.0
@@ -486,6 +495,7 @@ class Tracker:
         self.recorder = DeviceFeatureRecorder(
             dataset, max_object, embed_dim, similarity_fn, device=device
         )
+        self.spans = NO_SPANS
 
     # -- similarity matrix for a pool of tracks (tracker.py:663-688) ----------
 
@@ -642,12 +652,15 @@ class Tracker:
         else:
             detections = []
 
-        tracked_stracks = list(self.tracked_stracks)
-        strack_pool = joint_stracks(tracked_stracks, self.lost_stracks)
-        if not self.use_lstm:
-            STrack.multi_predict(
-                [t for t in strack_pool if t.mean is not None],
-                self.kalman_filter)
+        spans = self.spans
+        spans.add("dets", n_det)
+        with spans.span("tracker.predict"):
+            tracked_stracks = list(self.tracked_stracks)
+            strack_pool = joint_stracks(tracked_stracks, self.lost_stracks)
+            if not self.use_lstm:
+                STrack.multi_predict(
+                    [t for t in strack_pool if t.mean is not None],
+                    self.kalman_filter)
         lll = n_det
         # the detections the AFE similarity's columns keep
         cols = list(range(n_det))
@@ -675,87 +688,105 @@ class Tracker:
                                         pool_old)
 
         # -- primary association: AFE similarity + motion fusion --------------
-        dists = np.zeros((len(strack_pool), len(detections)))
-        if dists.size != 0:
-            dists = self.get_similarity(self.frame_id, strack_pool, lll)
-            dists = 1.0 - dists[:, :-1][:, cols]
-        if ddd:
-            dists = matching.fuse_motion_ddd(dists, strack_pool, detections,
-                                             classe_name=classe)
-        else:
-            dists = matching.fuse_motion(dists, strack_pool, detections,
-                                         frame_id=self.frame_id,
-                                         use_lstm=self.use_lstm)
-        matches, u_track, u_detection2 = matching.linear_assignment(dists, 0.9)
-        self._apply_matches(strack_pool, detections, matches, activated,
-                            output)
-        r_tracked = [strack_pool[i] for i in u_track]
-        detections = [detections[i] for i in u_detection2]
-
-        # -- second-chance AFE-only pass (nuScenes, KITTI) ---------------------
-        u_track = list(range(len(r_tracked)))
-        if self.dataset in ("nuscenes", "kitti_tracking") and detections:
-            dists = self.get_similarity(self.frame_id, r_tracked, lll)
+        with spans.span("tracker.affinity"):
+            dists = np.zeros((len(strack_pool), len(detections)))
             if dists.size != 0:
-                dists = 1.0 - dists[:, :-1][:, cols][:, u_detection2]
-                matches, u_track, u_detection = matching.linear_assignment(
-                    dists, 0.9
-                )
-                self._apply_matches(r_tracked, detections, matches,
-                                    activated, output)
-                detections = [detections[i] for i in u_detection]
-        strack_pool = r_tracked
+                dists = self.get_similarity(self.frame_id, strack_pool, lll)
+                dists = 1.0 - dists[:, :-1][:, cols]
+            if ddd:
+                dists = matching.fuse_motion_ddd(dists, strack_pool,
+                                                 detections,
+                                                 classe_name=classe)
+            else:
+                dists = matching.fuse_motion(dists, strack_pool, detections,
+                                             frame_id=self.frame_id,
+                                             use_lstm=self.use_lstm)
+        with spans.span("tracker.assign"):
+            matches, u_track, u_detection2 = matching.linear_assignment(
+                dists, 0.9)
+            spans.add("matched", len(matches))
+            self._apply_matches(strack_pool, detections, matches, activated,
+                                output)
+            r_tracked = [strack_pool[i] for i in u_track]
+            detections = [detections[i] for i in u_detection2]
+
+            # -- second-chance AFE-only pass (nuScenes, KITTI) ---------------
+            u_track = list(range(len(r_tracked)))
+            if self.dataset in ("nuscenes", "kitti_tracking") and detections:
+                dists = self.get_similarity(self.frame_id, r_tracked, lll)
+                if dists.size != 0:
+                    dists = 1.0 - dists[:, :-1][:, cols][:, u_detection2]
+                    matches, u_track, u_detection = matching.linear_assignment(
+                        dists, 0.9
+                    )
+                    self._apply_matches(r_tracked, detections, matches,
+                                        activated, output)
+                    detections = [detections[i] for i in u_detection]
+            strack_pool = r_tracked
 
         # -- IoU association on the remainder ---------------------------------
-        if self.dataset in ("kitti_tracking", "nuscenes"):
-            recent = 3 if ddd else 6
-            r_tracked = [strack_pool[i] for i in u_track
-                         if abs(self.frame_id - strack_pool[i].frame_id)
-                         < recent]
-        else:
-            r_tracked = [strack_pool[i] for i in u_track
-                         if strack_pool[i].state == TrackState.Tracked]
-        dists = matching.iou_distance(
-            r_tracked, detections, self.frame_id,
-            use_prediction=self.use_lstm and not ddd)
-        matches, u_track, u_detection = matching.linear_assignment(
-            dists, 0.0 if ddd else 0.9)
-        self._apply_matches(r_tracked, detections, matches, activated,
-                            output)
+        with spans.span("tracker.iou"):
+            if self.dataset in ("kitti_tracking", "nuscenes"):
+                recent = 3 if ddd else 6
+                r_tracked = [strack_pool[i] for i in u_track
+                             if abs(self.frame_id - strack_pool[i].frame_id)
+                             < recent]
+            else:
+                r_tracked = [strack_pool[i] for i in u_track
+                             if strack_pool[i].state == TrackState.Tracked]
+            dists = matching.iou_distance(
+                r_tracked, detections, self.frame_id,
+                use_prediction=self.use_lstm and not ddd)
+            matches, u_track, u_detection = matching.linear_assignment(
+                dists, 0.0 if ddd else 0.9)
+            self._apply_matches(r_tracked, detections, matches, activated,
+                                output)
 
-        for it in u_track:
-            track = r_tracked[it]
-            if self.frame_id - track.frame_id > self.max_time_lost:
-                track.mark_removed()
-                removed.append(track)
+            for it in u_track:
+                track = r_tracked[it]
+                if self.frame_id - track.frame_id > self.max_time_lost:
+                    track.mark_removed()
+                    removed.append(track)
 
         # -- births ------------------------------------------------------------
-        detections = [detections[i] for i in u_detection]
-        for track in detections:
-            output.append(track)
-            if track.score < self.det_thresh:
-                continue
-            track.activate(self.kalman_filter, self.frame_id, self.ids)
-            activated.append(track)
+        with spans.span("tracker.births"):
+            detections = [detections[i] for i in u_detection]
+            births = 0
+            for track in detections:
+                output.append(track)
+                if track.score < self.det_thresh:
+                    continue
+                track.activate(self.kalman_filter, self.frame_id, self.ids)
+                activated.append(track)
+                births += 1
+            spans.add("births", births)
 
         # -- lifecycle bookkeeping (tracker.py:1037-1054) ----------------------
-        for track in self.lost_stracks:
-            if self.frame_id - track.end_frame > self.max_time_lost:
-                track.mark_removed()
-                removed.append(track)
+        with spans.span("tracker.bookkeeping"):
+            for track in self.lost_stracks:
+                if self.frame_id - track.end_frame > self.max_time_lost:
+                    track.mark_removed()
+                    removed.append(track)
 
-        self.tracked_stracks = [
-            t for t in self.tracked_stracks if t.state == TrackState.Tracked
-        ]
-        # the reference's `refind_stracks` list is never appended to; a
-        # re-activated track rejoins tracked_stracks one frame later via the
-        # Tracked-state branch, as in the JAX package
-        self.tracked_stracks = joint_stracks(self.tracked_stracks, activated)
-        self.lost_stracks = sub_stracks(self.lost_stracks, self.tracked_stracks)
-        self.lost_stracks = sub_stracks(self.lost_stracks, self.removed_stracks)
-        self.removed_stracks.extend(removed)
-        self.tracked_stracks, self.lost_stracks = remove_duplicate_stracks(
-            self.tracked_stracks, self.lost_stracks, ddd_tracking=ddd)
+            self.tracked_stracks = [
+                t for t in self.tracked_stracks
+                if t.state == TrackState.Tracked
+            ]
+            # the reference's `refind_stracks` list is never appended to; a
+            # re-activated track rejoins tracked_stracks one frame later via
+            # the Tracked-state branch, as in the JAX package
+            self.tracked_stracks = joint_stracks(self.tracked_stracks,
+                                                 activated)
+            self.lost_stracks = sub_stracks(self.lost_stracks,
+                                            self.tracked_stracks)
+            self.lost_stracks = sub_stracks(self.lost_stracks,
+                                            self.removed_stracks)
+            self.removed_stracks.extend(removed)
+            self.tracked_stracks, self.lost_stracks = remove_duplicate_stracks(
+                self.tracked_stracks, self.lost_stracks, ddd_tracking=ddd)
+        spans.add("tracks_held",
+                  len(self.tracked_stracks) + len(self.lost_stracks))
+        spans.add("tracks_removed", len(self.removed_stracks))
         if self.use_lstm:
             self._flush_lstm(output)
         return output

@@ -257,16 +257,16 @@ def check_submit_after_submit_warped(setup):
 
 def check_cascade_worker_under_thread_switching(setup):
     """The main thread and the cascade worker share the buffer pools and
-    the timing buckets (under locks): with the interpreter switching
-    threads every microsecond, a run still counts each frame once and
-    tracks as test.py's run does."""
+    the spans' totals (under locks): with the interpreter switching
+    threads every microsecond, a run still counts each frame once (one
+    ``cascade`` span per frame) and tracks as test.py's run does."""
     sd, seq, runs, _ = setup
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         run = port_runner(sd, chunk=1)
         got = run.track_sequence(seq[:10])
-        done = run._frames_done
+        done = run.spans.count["cascade"]
     finally:
         sys.setswitchinterval(interval)
     assert done == 10
