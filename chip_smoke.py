@@ -182,6 +182,7 @@ from deft_tpu_torch.data.image_io import imread
 from deft_tpu_torch.data.synthetic_kitti import make_sequence
 from deft_tpu_torch.data.synthetic_nuscenes import make_scene, make_tables
 import deft_tpu_torch.models.deft as deft_model
+from deft_tpu_torch.inference import runner as runner_module
 from deft_tpu_torch.inference.detector import Detector, parity_tf
 from deft_tpu_torch.inference.runner import PipelinedRunner, pack_yuv420
 from deft_tpu_torch.models import dcn as dcn_module
@@ -848,7 +849,8 @@ def arch_run(name, det, frames, per_frame, chunk=None):
     """One tracking path of the archs phase: ``Detector.run`` (``chunk``
     None) or a ``PipelinedRunner`` at ``chunk``.  Asserts ``per_frame``
     {(kernel, x dtype): launches} per dispatched frame and nothing else,
-    and finite tracks; returns its row: wall ms/frame (the frames after
+    and finite tracks, and a runner's replayed frame graphs (``seen.
+    replays``); returns its row: wall ms/frame (the frames after
     the first; a runner's whole sequence), device ms/frame over three more
     frames under ``torch.profiler``, launches and detections per frame."""
     sync = torch.cuda.synchronize
@@ -889,6 +891,8 @@ def arch_run(name, det, frames, per_frame, chunk=None):
     if count != want_count or dict(seen) != want:
         raise AssertionError(f"archs {name}: launches {count} on x "
                              f"{dict(seen)}, expected {want}")
+    if chunk is not None and not seen.replays:
+        raise AssertionError(f"archs {name}: the runner replayed no graph")
     n_tracks = check_tracks(seq, 0)
     device_ms, _ = device_profile(again, 3)
     cfg = det.cfg
@@ -2319,9 +2323,15 @@ WRAPPER_KERNELS = {"deform_sample": "dcn_sample",
 def sampled_dtypes():
     """Counts (kernel, x dtype) of every kernel launch meanwhile: each
     wrapper asks ``cuda_dcn._on_card`` with x first, and launches where it
-    answers True."""
+    answers True.  A frame program's CUDA graph (the runner's
+    ``_FrameGraph``) calls no wrapper when it replays: as with the launch
+    counters, its capture's calls, which launch nothing, count at each
+    replay instead, and ``seen.replays`` counts the replays."""
     seen = Counter()
+    seen.replays = 0
     on_card = cuda_dcn._on_card
+    graph = runner_module._FrameGraph
+    capture, replay = graph.__init__, graph.replay
 
     def counted(name, *tensors):
         launching = on_card(name, *tensors)
@@ -2330,17 +2340,33 @@ def sampled_dtypes():
                   str(tensors[0].dtype).replace("torch.", ""))] += 1
         return launching
 
+    def counted_capture(frame_graph, *args):
+        before = Counter(seen)
+        capture(frame_graph, *args)
+        frame_graph.sampled = seen - before
+        seen.clear()
+        seen.update(before)
+
+    def counted_replay(frame_graph, images):
+        out = replay(frame_graph, images)
+        seen.update(frame_graph.sampled)
+        seen.replays += 1
+        return out
+
     cuda_dcn._on_card = counted
+    graph.__init__, graph.replay = counted_capture, counted_replay
     try:
         yield seen
     finally:
         cuda_dcn._on_card = on_card
+        graph.__init__, graph.replay = capture, replay
 
 
 def cli_run(argv):
     """``deft_tpu_torch.test.main(argv)`` with its stdout (the evaluators'
-    tables) sent to stderr: (metrics, stats, launches, x dtypes, peak
-    bytes, resident bytes at the start)."""
+    tables) sent to stderr: (metrics, stats, launches, x dtypes (with the
+    runner's graph ``replays``), peak bytes, resident bytes at the
+    start)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2350,7 +2376,7 @@ def cli_run(argv):
     with sampled_dtypes() as seen, contextlib.redirect_stdout(sys.stderr):
         metrics = port_test.main(argv, stats)
     count = launches()
-    return (metrics, stats, count, dict(seen),
+    return (metrics, stats, count, seen,
             torch.cuda.max_memory_allocated(), resident)
 
 
@@ -2474,6 +2500,12 @@ def cli_phase():
                     raise AssertionError(
                         f"{recipe} {dtype} {impl} ({what}): launches {count} "
                         f"on x {seen}, expected {want}")
+                # nuScenes tracks through run_multi, the others through
+                # the runner, whose frame programs replay as graphs
+                if (recipe != "nuscenes") != (seen.replays > 0):
+                    raise AssertionError(
+                        f"{recipe} {dtype} {impl} ({what}): "
+                        f"{seen.replays} graph replays")
                 return check_cli_outputs(recipe, argv, metrics, data[recipe])
 
             t_run = time.perf_counter()
@@ -2496,6 +2528,7 @@ def cli_phase():
                    "main_seconds": t_run,
                    "x_dtype_launches": {f"{k} {d}": n
                                         for (k, d), n in seen.items()},
+                   "graph_replays": seen.replays,
                    "peak_memory_bytes": peak,
                    "resident_at_start_bytes": resident,
                    "metrics_overall": {k: v for k, v in overall.items()
@@ -2914,7 +2947,8 @@ def geometry_run(name, det, frames, per_frame, kernel, dtype, chunk=None,
     """One path of the geometry phase over ``frames``: ``Detector.run``
     (``chunk`` None) or a ``PipelinedRunner`` at ``chunk``.  Asserts
     ``per_frame`` launches of ``kernel`` on an x of ``dtype`` per
-    dispatched frame and no other kernel, finite tracks and at least
+    dispatched frame and no other kernel, a runner's replayed frame
+    graphs, finite tracks and at least
     ``min_dets`` detections to the tracker per frame (median); returns its
     row: wall ms/frame (the frames after the first; a runner's whole
     sequence over its frames), device ms/frame over three more frames of
@@ -2959,6 +2993,8 @@ def geometry_run(name, det, frames, per_frame, kernel, dtype, chunk=None,
     if count != expected or dict(seen) != {(kernel, dtype): expected[kernel]}:
         raise AssertionError(f"geometry {name}: launches {count} on x "
                              f"{dict(seen)}, expected {expected} on {dtype}")
+    if chunk is not None and not seen.replays:
+        raise AssertionError(f"geometry {name}: the runner replayed no graph")
     n_dets = check_tracks(seq, 0)
     tracked = counts[: len(frames)]
     if statistics.median(tracked) < min_dets:
@@ -3867,9 +3903,10 @@ def synth_phase(weights: Path) -> dict:
         want_count = dict.fromkeys(KERNELS, 0)
         want_count.update({k: v for (k, _), v in want.items()})
         if (n != SYNTH_COUNTS["mot"]["val_half_images"]
-                or count != want_count or seen != want):
+                or count != want_count or seen != want or not seen.replays):
             raise AssertionError(f"synth mot {run}: {n} frames, launches "
-                                 f"{count} on x {seen}, expected {want}")
+                                 f"{count} on x {seen} ({seen.replays} graph "
+                                 f"replays), expected {want}")
         launched.update(count)
         runs.append({
             "run": run, "launches": count,

@@ -50,9 +50,21 @@ The runner overlaps them:
 * A partial final chunk is padded by repeating its last frame and the pad's
   outputs are dropped (the device ring then holds pad entries: ``reset()``
   before the next sequence).
+* On a card the frame program of a dispatch is replayed as one CUDA graph
+  (``run_program``): the host queues a slab copy and one graph launch in
+  place of some 1,500-2,000 small kernels a chunk.  A graph is captured
+  per program key, the first time the key comes since ``reset()`` (which
+  builds a new ring, so it drops the graphs) after an eager dispatch of it
+  in the runner's life has built what the program builds lazily.  A graph
+  captures the model as bound at its capture, so a method rebound before
+  a sequence's first dispatch is part of it.  Graphs need a program whose
+  state is all updated in place: delta uploads (which rebind the ring's
+  ``prev_frame``) and public detections (which upload centres per frame)
+  stay eager, as does every CPU run.
 * ``spans`` (``utils/spans.py``) times each stage of both threads, the
   frame programs' (``program.*``) and the tracker's (``tracker.*``), and
-  counts the cascade's load; ``timings()`` reads it.  Its spans carry the
+  counts the cascade's load and the dispatches that ran eager, captured a
+  graph or replayed one; ``timings()`` reads it.  Its spans carry the
   frame's id (submission order) or the chunk's (dispatch order), which
   count on across resets.
 * Under ``cfg.public_det`` the chunk is 1, and a frame whose meta carries
@@ -84,6 +96,7 @@ import torch
 
 from deft_tpu_torch.inference.detector import parity_tf, public_det_centers
 from deft_tpu_torch.models.deft import new_ring, unpack_dets
+from deft_tpu_torch.ops import cuda_dcn
 from deft_tpu_torch.ops.affine import get_affine_transform
 from deft_tpu_torch.ops.warp import separable_inverse_tf, warp_affine_uint8
 from deft_tpu_torch.tracking.tracker import freshness_window
@@ -197,6 +210,39 @@ class _HostBuffers:
                 self._free.append((buf, event))
 
 
+class _FrameGraph:
+    """A frame program captured as one CUDA graph: the static input it
+    reads (``images``), the outputs each replay overwrites and the DCN
+    kernel launches it holds.  ``call`` maps images to the program's
+    outputs; ``images`` are a dispatch's, copied into the static input.
+    ``held`` keeps alive the tensors the graph reads that otherwise only
+    a cache of the model holds (``run_program``).
+
+    The capture runs on a side stream, its errors confined to this
+    thread's CUDA calls: the cascade worker goes on synchronizing on its
+    own thread.  A capture launches nothing, so the launch counters it
+    moved are taken back, and each replay adds them."""
+
+    def __init__(self, call, images: torch.Tensor):
+        self.images = images.clone()
+        self.held = ()
+        self.graph = torch.cuda.CUDAGraph()
+        before = cuda_dcn.launch_counts()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = call(self.images)
+        self.launches = {k: n - before[k]
+                         for k, n in cuda_dcn.launch_counts().items()}
+        cuda_dcn.add_launches({k: -n for k, n in self.launches.items()})
+
+    def replay(self, images: torch.Tensor):
+        """Run the program on ``images``, copied into the static input, on
+        the current stream; returns the static outputs."""
+        self.images.copy_(images)
+        self.graph.replay()
+        cuda_dcn.add_launches(self.launches)
+        return self.outputs
+
+
 class PipelinedRunner:
     """Single-sequence tracking loop for MOT/KITTI (2-D datasets)."""
 
@@ -266,6 +312,11 @@ class PipelinedRunner:
         self._slabs = _HostBuffers(pinned=on_card, spans=self.spans)
         self._fetch_bufs = _HostBuffers(pinned=on_card)
         self._center_bufs = _HostBuffers(pinned=on_card)
+        # the frame programs' CUDA graphs (run_program): the keys dispatched
+        # eager once in the runner's life, and the graphs since the reset
+        self._graphs_on = self._graphs_engage()
+        self._warm: set = set()
+        self._graphs: Dict[tuple, _FrameGraph] = {}
 
         present = {"scores", "clses", "cts"}
         if {"wh", "ltrb", "ltrb_amodal"} & set(cfg.heads):
@@ -326,6 +377,10 @@ class PipelinedRunner:
         for item in getattr(self, "_pending", []):
             if item["event"] is not None:
                 item["event"].synchronize()
+        if self._graphs and self.device.type == "cuda":
+            # a graph goes, with its memory, once its replays have run
+            torch.cuda.synchronize(self.device)
+        self._graphs = {}               # they hold the old ring
         self.spans.reset()
         self.state = new_ring(RING_SLOTS, self.cfg.max_object,
                               self.det.embed_dim, self.device)
@@ -577,22 +632,93 @@ class PipelinedRunner:
         """Queue the frame program of one dispatch on the device: images
         [chunk, ...] as uploaded, ``frame_meta`` the first frame's ->
         (packed [chunk, L], sims [chunk, ...]); the ring is updated in
-        place.  The bench times it alone."""
-        model = self.det.model
-        kw = dict(k=self.cfg.K, class_filter=self.class_filter,
-                  sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,
-                  parity_tf=self._parity_tf(frame_meta),
-                  warp_tf=frame_meta["warp_tf"],
-                  warp_out=(frame_meta["inp_height"],
-                            frame_meta["inp_width"]),
-                  flip_test=self.cfg.flip_test, yuv_in=self._yuv_mode)
-        if images.shape[0] == 1:
-            packed, sims = model.frame_step(images, self.state,
-                                            self.cfg.out_thresh, **kw)
+        place.  The bench times it alone.
+
+        Where graphs engage (``_graphs_engage``), the first dispatch of a
+        key (``_graph_key``) in the runner's life runs eager: it builds the
+        kernels, cuDNN's plans and the device warp's matrices, none of
+        which a capture may do.  The first of the key since ``reset()``
+        captures the program (span ``program.capture``) and replays it;
+        each later one copies its images into the graph's static input
+        and replays (``program.replay``), returning the graph's outputs,
+        which the next replay overwrites.  A dispatch counts in
+        ``eager_programs``, ``graph_captures`` or ``graph_replays``."""
+        kw = self._program_kw(frame_meta)
+        key = (self._graph_key(images.shape, images.dtype, kw)
+               if self._graphs_on else None)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self.spans.add("graph_replays")
+            with self.spans.span("program.replay"):
+                return graph.replay(images)
+        call = self._program(images.shape[0], kw)
+        if key is None or key not in self._warm:
+            if key is not None:
+                self._warm.add(key)
+            self.spans.add("eager_programs")
+            return call(images)
+        self.spans.add("graph_captures")
+        with self.spans.span("program.capture"):
+            graph = self._graphs[key] = _FrameGraph(call, images)
+            # the device warp's matrices the capture read: the model's
+            # cache of them may drop them while the graph lives
+            graph.held = tuple(self.det.model._hats.values())
+            return graph.replay(images)
+
+    def _graphs_engage(self) -> bool:
+        """Whether the frame programs run as CUDA graphs: on a card, where
+        every state the program updates is updated in place (not under
+        delta uploads, which rebind the ring's ``prev_frame``, nor under
+        public detections, whose centres go up per frame)."""
+        return (self.device.type == "cuda" and not self._delta_mode
+                and not self.cfg.public_det)
+
+    def _program_kw(self, frame_meta: dict) -> dict:
+        """The frame program's keyword arguments for a dispatch whose
+        first frame has ``frame_meta``."""
+        return dict(k=self.cfg.K, class_filter=self.class_filter,
+                    sims_quant=self.cfg.sims_quant,
+                    sim_window=self.sim_window,
+                    parity_tf=self._parity_tf(frame_meta),
+                    warp_tf=frame_meta["warp_tf"],
+                    warp_out=(frame_meta["inp_height"],
+                              frame_meta["inp_width"]),
+                    flip_test=self.cfg.flip_test, yuv_in=self._yuv_mode)
+
+    def _program_name(self, n: int) -> str:
+        if n == 1:
+            return "frame_step"
+        return ("frame_chunk_batched" if self.cfg.chunk_batched
+                else "frame_chunk")
+
+    def _program(self, n: int, kw: dict):
+        """The frame program of a dispatch of ``n`` frames as a function
+        of its images -> (packed [n, L], sims [n, ...]), writing the
+        ring."""
+        program = getattr(self.det.model, self._program_name(n))
+        state, thresh = self.state, self.cfg.out_thresh
+        if n > 1:
+            return lambda images: program(images, state, thresh, **kw)
+
+        def step(images):
+            packed, sims = program(images, state, thresh, **kw)
             return packed[None], sims[None]
-        program = (model.frame_chunk_batched if self.cfg.chunk_batched
-                   else model.frame_chunk)
-        return program(images, self.state, self.cfg.out_thresh, **kw)
+
+        return step
+
+    def _graph_key(self, shape, dtype, kw: dict) -> tuple:
+        """Everything on the host that a frame program bakes in: the
+        program, its input's shape and dtype, its arguments (the
+        transforms as float32 values) and ``out_thresh``."""
+        def values(tf):
+            return (None if tf is None else tuple(
+                float(v) for v in np.asarray(tf, np.float32).ravel()))
+
+        return (self._program_name(shape[0]), tuple(shape), dtype,
+                values(kw["warp_tf"]), tuple(kw["warp_out"]),
+                values(kw["parity_tf"]), kw["k"], kw["class_filter"],
+                kw["sims_quant"], kw["sim_window"], kw["flip_test"],
+                kw["yuv_in"], float(self.cfg.out_thresh))
 
     def _parity_tf(self, frame_meta: dict):
         """The frame programs' ``parity_tf`` under ``cfg.embed_parity``
@@ -612,6 +738,7 @@ class PipelinedRunner:
         np.copyto(host.numpy(), centers)
         dev_centers = host.to(self.device, non_blocking=True)
         self._center_bufs.give(host, self._record_event())
+        self.spans.add("eager_programs")
         sims = self.det.model.frame_step_embed(
             images, dev_centers, n, self.state,
             sims_quant=self.cfg.sims_quant, sim_window=self.sim_window,

@@ -43,13 +43,15 @@ Entry points, with the JAX layouts at their boundary:
 The ring state ``{"embeds" [W, M, E] float32, "counts" [W] int32, "ptr" []
 int64}`` is a dict of device tensors that the frame programs update in place
 (the JAX package returns a new state and donates the old); nothing in a
-frame program waits for the device, so a caller can queue frames ahead.
+frame program waits for the device or takes a shape from it, so a caller
+can queue frames ahead, or capture a program as a CUDA graph
+(``PipelinedRunner.run_program``).
 
 ``spans`` (``utils/spans.py``; a ``PipelinedRunner`` sets its own) times the
 frame programs' stages as the host queues them: ``program.warp`` (the input
 path), ``program.forward``, ``program.decode`` (sigmoid, decode, centres),
 ``program.embed`` (the AFE's sampling) and ``program.tail`` (per frame: the
-similarity and the ring write).
+similarity and the ring write).  A replayed graph opens none of them.
 """
 
 from __future__ import annotations

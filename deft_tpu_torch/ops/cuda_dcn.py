@@ -117,6 +117,21 @@ LAUNCHES_ONEHOT = 0
 LAUNCHES_FUSED = 0
 LAUNCHES_BACKWARD = 0
 LAUNCHES_BACKWARD_ENTRY = 0
+COUNTERS = ("LAUNCHES", "LAUNCHES_TAP", "LAUNCHES_ONEHOT", "LAUNCHES_FUSED",
+            "LAUNCHES_BACKWARD", "LAUNCHES_BACKWARD_ENTRY")
+
+
+def launch_counts() -> dict:
+    """Every launch counter, by its name in ``COUNTERS``."""
+    return {name: globals()[name] for name in COUNTERS}
+
+
+def add_launches(counts: dict):
+    """Add ``counts`` (``launch_counts``' names) to the counters: the
+    launches of a captured CUDA graph, counted once more at each replay
+    (``inference/runner.py``)."""
+    for name, n in counts.items():
+        globals()[name] += n
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
