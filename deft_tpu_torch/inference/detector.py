@@ -51,7 +51,12 @@ and ``run_multi`` save none, as in the JAX package.
 stages (pre, net, post, track, tot; ``timers.mean_ms()``, ``timers.count``),
 and under a profiler marks them in its trace.  On the card a stage ends when
 the host moves on: device work queued in one stage may be waited for in a
-later one.
+later one.  ``run_multi`` records ``pre`` (the rig's frames brought in),
+``net``, ``post`` and ``track``, counts ``cameras``, and inside ``track``
+the rig's ``rig.ddd`` (the camera -> global boxes and the per-class NMS);
+the nuScenes trackers record their stages into ``timers`` too
+(``tracker.*``, among them ``tracker.iou3d`` and ``tracker.lstm``, and the
+counters ``iou3d_pairs`` and ``lstm_rows``).
 """
 
 from __future__ import annotations
@@ -171,10 +176,12 @@ class Detector:
 
     def reset_tracking(self):
         """Fresh trackers (and rings) for a new sequence: one per tracking
-        class on nuScenes."""
+        class on nuScenes, each recording its stages into ``timers``."""
         if self.dataset == "nuscenes":
             self.tracker = {c: self._make_tracker()
                             for c in NUSCENES_TRACKING_CLASSES}
+            for tracker in self.tracker.values():
+                tracker.spans = self.timers
         else:
             self.tracker = self._make_tracker()
 
@@ -379,7 +386,13 @@ class Detector:
         that camera's tracker update.  Track objects are live and later
         cameras' updates mutate them, so a caller that serializes tracks
         must do it through this hook, not after the return."""
-        return self._detect_and_track(images_or_frames, metas, image_infos,
+        self.timers.add("cameras", len(images_or_frames))
+        with self.timers.span("pre"):
+            frames = [dict(zip(("images", "meta"), self._prepare(img, meta)))
+                      for img, meta in zip(images_or_frames,
+                                           metas or [None] * len(
+                                               images_or_frames))]
+        return self._detect_and_track(frames, None, image_infos,
                                       materialize)[0]
 
     def _detect_and_track(self, images_or_frames, metas=None,
@@ -472,6 +485,23 @@ class Detector:
         the global frame through the camera's and the ego pose's records,
         per-class greedy NMS under ``cfg.nms``; ``emb`` is [n, E] on the
         device."""
+        with self.timers.span("rig.ddd"):
+            by_class = self._route_nuscenes(results, image_info)
+        online = []
+        for cname in NUSCENES_TRACKING_CLASSES:
+            slot = by_class[cname]
+            rows = torch.as_tensor(slot["emb"], dtype=torch.long,
+                                   device=emb.device)
+            online += self.tracker[cname].update(
+                slot["dets"], emb.index_select(0, rows),
+                ddd_boxes=slot["ddd"], depths=slot["depth"],
+                ddd_org_boxes=slot["org"], submission=slot["sub"],
+                classe=cname)
+        return online
+
+    def _route_nuscenes(self, results, image_info) -> Dict[str, dict]:
+        """``_update_nuscenes``' host geometry: each tracking class's
+        detections with their global boxes, after the per-class NMS."""
         trans_matrix = np.array(image_info["trans_matrix"], np.float64)
         by_class: Dict[str, dict] = {
             c: {"dets": [], "emb": [], "ddd": [], "depth": [], "org": [],
@@ -510,7 +540,6 @@ class Detector:
             slot["sub"].append([float(v) for v in translation1[:3]] + size
                                + rotation)
 
-        online = []
         for cname in NUSCENES_TRACKING_CLASSES:
             slot = by_class[cname]
             if slot["dets"] and self.cfg.nms:
@@ -521,11 +550,4 @@ class Detector:
                 keep = sorted(set(keep.tolist()))
                 for key in slot:
                     slot[key] = [slot[key][i] for i in keep]
-            rows = torch.as_tensor(slot["emb"], dtype=torch.long,
-                                   device=emb.device)
-            online += self.tracker[cname].update(
-                slot["dets"], emb.index_select(0, rows),
-                ddd_boxes=slot["ddd"], depths=slot["depth"],
-                ddd_org_boxes=slot["org"], submission=slot["sub"],
-                classe=cname)
-        return online
+        return by_class

@@ -26,6 +26,9 @@ times ``update``'s stages (``tracker.predict``, ``tracker.affinity``,
 ``matched`` (the 0.9 appearance assignment's pairs), ``births``,
 ``tracks_held`` (tracked and lost after the update) and ``tracks_removed``
 (the length of ``removed_stracks``, which grows for the whole sequence).
+The nuScenes branch adds ``tracker.iou3d`` (each 3-D IoU matrix, counted
+in ``iou3d_pairs``) and ``tracker.lstm`` (each batched LSTM step, its
+tracks counted in ``lstm_rows``).
 """
 
 from __future__ import annotations
@@ -671,7 +674,7 @@ class Tracker:
                         if abs(t.frame_id - self.frame_id) >= 3]
             pool_new = [t for t in strack_pool
                         if abs(t.frame_id - self.frame_id) < 3]
-            dists = matching.iou_ddd_distance(pool_new, detections)
+            dists = iou_ddd_distance(pool_new, detections, spans)
             matches, u_track, u_detection0 = matching.linear_assignment(
                 dists, thresh=0.999)
             for itracked, idet in matches:
@@ -783,7 +786,8 @@ class Tracker:
                                             self.removed_stracks)
             self.removed_stracks.extend(removed)
             self.tracked_stracks, self.lost_stracks = remove_duplicate_stracks(
-                self.tracked_stracks, self.lost_stracks, ddd_tracking=ddd)
+                self.tracked_stracks, self.lost_stracks, ddd_tracking=ddd,
+                spans=spans)
         spans.add("tracks_held",
                   len(self.tracked_stracks) + len(self.lost_stracks))
         spans.add("tracks_removed", len(self.removed_stracks))
@@ -807,7 +811,9 @@ class Tracker:
         h = np.concatenate([t.hn for t in pend], axis=0)
         c = np.concatenate([t.cn for t in pend], axis=0)
         feats = np.stack([t._pending_feat for t in pend])
-        h2, c2, deltas = self.motion.predict_batch(h, c, feats)
+        self.spans.add("lstm_rows", len(pend))
+        with self.spans.span("tracker.lstm"):
+            h2, c2, deltas = self.motion.predict_batch(h, c, feats)
         for i, t in enumerate(pend):
             t.hn = h2[i: i + 1]
             t.cn = c2[i: i + 1]
@@ -855,9 +861,18 @@ def sub_stracks(tlista, tlistb):
     return list(stracks.values())
 
 
-def remove_duplicate_stracks(stracksa, stracksb, ddd_tracking=False):
+def iou_ddd_distance(atracks, btracks, spans=NO_SPANS) -> np.ndarray:
+    """``matching.iou_ddd_distance`` under the span ``tracker.iou3d``, its
+    pairs counted in ``iou3d_pairs``."""
+    spans.add("iou3d_pairs", len(atracks) * len(btracks))
+    with spans.span("tracker.iou3d"):
+        return matching.iou_ddd_distance(atracks, btracks)
+
+
+def remove_duplicate_stracks(stracksa, stracksb, ddd_tracking=False,
+                             spans=NO_SPANS):
     if ddd_tracking:
-        pdist = matching.iou_ddd_distance(stracksa, stracksb)
+        pdist = iou_ddd_distance(stracksa, stracksb, spans)
     else:
         pdist = matching.iou_distance(stracksa, stracksb)
     pairs = np.where(pdist < 0.15)
